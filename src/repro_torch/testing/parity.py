@@ -1,0 +1,52 @@
+"""Converter from the reference's parameter pytree to the port's state.
+
+The tests build a model with the JAX package, turn its ``init_params``
+tree into numpy arrays (``np.asarray`` on the JAX side), and hand it here.
+The stacked ``layers`` axis is unstacked into the port's per-layer
+``ModuleList``, so ``layers/attn/wq[i]`` becomes ``layers.i.attn.wq``.
+This module imports no JAX: bf16 leaves arrive as numpy ``bfloat16``
+arrays (ml_dtypes) and are reinterpreted bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def to_tensor(a, device="cpu") -> torch.Tensor:
+    a = np.array(a)  # a writable copy: JAX hands out read-only buffers
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, Any]):
+    for name, val in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(val, Mapping):
+            _flatten(val, key + ".", out)
+        else:
+            out[key] = val
+
+
+def state_from_jax(tree: Mapping[str, Any], device="cpu"
+                   ) -> Dict[str, torch.Tensor]:
+    """``{"embed": ..., "layers": <stacked>}`` numpy tree -> the port's
+    ``LM.state_dict()`` layout (``embed.table``, ``layers.0.attn.wq``...)."""
+    flat: Dict[str, Any] = {}
+    _flatten(tree["embed"], "embed.", flat)
+    stacked: Dict[str, Any] = {}
+    _flatten(tree["layers"], "", stacked)
+    n_layers = {np.asarray(v).shape[0] for v in stacked.values()}
+    if len(n_layers) != 1:
+        raise ValueError(f"stacked layer leaves disagree on depth: {n_layers}")
+    for i in range(n_layers.pop()):
+        for key, val in stacked.items():
+            flat[f"layers.{i}.{key}"] = np.asarray(val)[i]
+    extra = set(tree) - {"embed", "layers"}
+    if extra:
+        raise ValueError(f"no port for parameter groups {sorted(extra)}")
+    return {k: to_tensor(v, device) for k, v in flat.items()}

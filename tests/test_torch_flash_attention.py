@@ -1,0 +1,129 @@
+"""Attention in the PyTorch port against the JAX reference.
+
+The same numpy-seeded inputs go through the reference's Pallas kernel (in
+interpret mode, as ``test_kernels_interpret.py`` runs it on the CPU), its
+``naive`` oracle, and the port's plain versions and dispatcher, in f32 at
+atol/rtol 1e-5: the functions are equal, only the order of f32 sums
+differs. The hand-written CUDA kernel runs only on a card: its tests are
+in ``test_torch_kernels_gpu.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jfa_ops
+from repro.kernels.flash_attention import ref as jfa_ref
+from repro_torch.kernels.flash_attention import cuda as fa_cuda
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+CASES = [
+    # B, Sq, Sk, Hq, Hkv, D, causal, window  (test_kernels_interpret.py)
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 64, 192, 4, 1, 64, True, 64),     # prefix cache + sliding window
+    (1, 64, 64, 2, 2, 32, False, 0),
+    (1, 48, 48, 32, 2, 64, True, 0),      # GQA G=16, as GLM-4-9B
+]
+
+
+def _inputs(case, seed=0):
+    B, Sq, Sk, Hq, Hkv, D, _, _ = case
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, Hq, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, Hkv, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, Hkv, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_port_attention_matches_jax(case):
+    causal, win = case[6], case[7]
+    q, k, v = _inputs(case)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    want_pallas = np.asarray(jfa_ops.attention(
+        jq, jk, jv, causal=causal, window=win, impl="pallas",
+        interpret=True))
+    want_naive = np.asarray(jfa_ref.naive_attention(
+        jq, jk, jv, causal=causal, window=win))
+    got = {
+        "chunked": fa_ref.chunked_attention(tq, tk, tv, causal=causal,
+                                            window=win),
+        "naive": fa_ref.naive_attention(tq, tk, tv, causal=causal,
+                                        window=win),
+        "ops": fa_ops.attention(tq, tk, tv, causal=causal, window=win),
+    }
+    for name, out in got.items():
+        assert out.shape == q.shape and out.dtype == torch.float32, name
+        np.testing.assert_allclose(out.numpy(), want_pallas, **TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(out.numpy(), want_naive, **TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("block", [16, 40])
+def test_chunked_blocks_straddle_like_kernel_tiles(block):
+    """Many kv blocks with a ragged last one: the online-softmax recurrence
+    the kernel runs, against the one-shot softmax."""
+    case = (2, 100, 130, 8, 2, 64, True, 48)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(case, seed=3))
+    got = fa_ref.chunked_attention(q, k, v, window=48, block_q=block,
+                                   block_k=block)
+    want = fa_ref.naive_attention(q, k, v, window=48)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_bf16_output_dtype_and_f32_softmax():
+    case = (1, 32, 32, 4, 2, 64, True, 0)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(case, seed=5))
+    got = fa_ops.attention(q, k, v)
+    assert got.dtype == torch.bfloat16
+    want = jfa_ref.naive_attention(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v)))
+    # both round one f32 result to bf16: at most one bf16 ulp apart
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=1e-2, rtol=1e-2)
+
+
+def test_cpu_tensors_take_ref_and_never_count_a_launch(monkeypatch):
+    monkeypatch.setattr(fa_ops, "launches", 0)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(CASES[0]))
+    fa_ops.attention(q, k, v)
+    fa_ops.attention(q, k, v, impl="ref")
+    assert fa_ops.launches == 0
+
+
+def test_dispatch_refuses_what_it_cannot_run():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(CASES[0]))
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        fa_ops.attention(q, k, v, impl="cuda")
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        fa_cuda.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        fa_ops.attention(q, k, v, impl="pallas")
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        fa_ops.attention(q, k[:, :64], v[:, :64])
+
+
+def test_kernel_build_is_keyed_by_source_and_needs_nvcc(tmp_path,
+                                                        monkeypatch):
+    """The library name hashes the source, so an edited kernel never loads
+    a stale build; without nvcc the build raises instead of falling back."""
+    from repro_torch.kernels import build
+    src = tmp_path / "k.cu"
+    src.write_text("extern \"C\" int f() { return 0; }\n")
+    first = build.library_path(src)
+    src.write_text("extern \"C\" int f() { return 1; }\n")
+    assert build.library_path(src) != first
+    assert first.parent == build.BUILD_DIR and first.name.startswith("k-")
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(build.os, "access", lambda *_: False)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build([src])
+    assert list((tmp_path / "out").iterdir()) == []
