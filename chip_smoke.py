@@ -7,28 +7,46 @@ Phases, each printing one JSON line:
 
 1. ``device`` / ``build``: the card, then every kernel built from the
    sources in this checkout (one ``nvcc`` per source, all at once).
-2. ``kernel_check``: each kernel against its plain PyTorch version on the
-   card at the serving path's shapes and at edge shapes, with times of the
-   kernel, the plain version and one PyTorch library call, and the least
-   time the card could take.
-3. ``model_check``: GLM-4-9B at full width, cut to 2 layers; prefill logits
+2. ``kernel_check``: the flash-attention kernel against its plain PyTorch
+   version on the card at the serving path's shapes and at edge shapes,
+   with times of the kernel, the plain version and one PyTorch library
+   call, and the least time the card could take.
+3. ``gmm_check``: the same for the grouped-matmul kernels: ``gmm_equal``
+   forward and its two backward products at the model learner's shapes,
+   ``gmm_ragged`` at the assigned predictor's, and both at edge shapes.
+4. ``model_check``: GLM-4-9B at full width, cut to 2 layers; prefill logits
    through the kernel against the same through the plain attention.
-4. ``serve``: ``WorldModelServer`` on the full 40-layer GLM-4-9B with a
+5. ``serve``: ``WorldModelServer`` on the full 40-layer GLM-4-9B with a
    ``ParameterServer``, mixed prompt lengths and a mid-run push; asserts
    the serving invariants and that every prefill went through the kernel.
    Then ``decode_profile``: ``torch.profiler`` over a few full-width decode
    ticks (device time, busy share, kernels per tick), after the counts of
    the main path are read.
-5. ``kernels``: one entry per kernel, as the port's records expect.
+6. ``model_learn``: Algorithms 1-2 on ``pr2_lego_stack`` at the widest
+   ensemble the repo ships (hidden 256, depth 2, 5 members): a collector
+   farm of 20 robots fills the learner's ring, epoch by epoch, then ten
+   more epochs run on the full ring. Asserts the exact trajectory count,
+   one input shape for ``train_epoch`` and ``val_loss``, one model version
+   per epoch, the ``gmm_equal`` launches each epoch implies, and a falling
+   validation loss. Then ``epoch_profile``: ``torch.profiler`` over one
+   more epoch (device time, busy share, kernels per epoch).
+7. ``assigned_predict``: the published ensemble predicts the val ring's
+   transitions with sampled members through ``gmm_ragged``, held against
+   the all-member forward's row-selected output.
+8. ``kernels``: one entry per kernel, as the port's records expect.
 
-The line before the last is the card's name and power limit from
-``nvidia-smi``; the last is ``{"ok": true, "device": {...}}``. Any failed
-check raises, so the script exits non-zero and prints no result. It
-imports nothing of JAX and nothing of the JAX package ``repro``.
+Each kernel's launches are counted from 0 just before the phase that
+drives its path (``serve``, ``model_learn``, ``assigned_predict``) and read
+just after it; comparison launches never count. The line before the last
+is the card's name and power limit from ``nvidia-smi``; the last is
+``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+exits non-zero and prints no result. It imports nothing of JAX and nothing
+of the JAX package ``repro``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -51,6 +69,18 @@ LOGITS_ATOL = 0.1
 PREFILL_BUCKETS = (16, 32, 64)
 SERVE_PROMPTS = (5, 12, 16, 20, 31, 40, 57, 64)  # spans all three buckets
 SERVE_MAX_NEW = 16
+# gmm kernels vs plain products, f32 both, no TF32: sums of up to 5,000
+# f32 products in another order, relative to the operands' scale
+GMM_TOL = 1e-4
+# model learning: pr2_lego_stack (Arm7: obs 23, act 7, horizon 100), a farm
+# of 20 robots, the learner's ring of 200 trajectories. Every 5th goes to
+# the val ring, so the train ring is full at 250: 12 batches of 20 and a
+# last grant of 10
+LEARN_ENV, LEARN_LANES, LEARN_TRAJS, LEARN_EPOCHS = (
+    "pr2_lego_stack", 20, 250, 10)
+# predict_assigned vs the all-member forward's selected rows, f32: the
+# same three layers summed in another order by two kernels
+ASSIGNED_ATOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -83,6 +113,26 @@ def time_ms(fn, target_ms: float = 200.0) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device time per call of ``fn``: the summed durations of every kernel
+    it launches, by ``torch.profiler`` over ``n`` calls after a warm-up.
+    At the MBRL shapes a kernel runs for microseconds, less than its
+    launch costs the host, so ``time_ms`` there measures the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("profiler recorded no device time")
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
 
 
 # ---------------------------------------------------------------- phase 2
@@ -162,6 +212,143 @@ def check_attention(fa_ops, fa_ref) -> dict:
 
 # ---------------------------------------------------------------- phase 3
 
+# name, G, M, K, N of the forward product, operand layout: "fwd" (a x w),
+# "fwd_bcast" (the first layer: one input read by every member), "dx"
+# (dY x W^T), "dw" (X^T x dY), "dw_bcast" (X^T x dY of the first layer)
+GMM_EQUAL_CASES = [
+    ("train_l1_fwd", 5, 256, 30, 256, "fwd_bcast"),
+    ("train_l2_fwd", 5, 256, 256, 256, "fwd"),
+    ("train_l3_fwd", 5, 256, 256, 23, "fwd"),
+    ("train_l1_dx", 5, 256, 30, 256, "dx"),
+    ("train_l1_dw", 5, 256, 30, 256, "dw_bcast"),
+    ("train_l2_dx", 5, 256, 256, 256, "dx"),
+    ("train_l2_dw", 5, 256, 256, 256, "dw"),
+    ("train_l3_dx", 5, 256, 256, 23, "dx"),
+    ("train_l3_dw", 5, 256, 256, 23, "dw"),
+    ("val_l1_fwd", 5, 5000, 30, 256, "fwd_bcast"),
+    ("val_l2_fwd", 5, 5000, 256, 256, "fwd"),
+    ("val_l3_fwd", 5, 5000, 256, 23, "fwd"),
+    ("edge_g1", 1, 128, 64, 64, "fwd"),
+    ("edge_m37_n23", 5, 37, 32, 23, "fwd"),
+    ("edge_k1", 3, 70, 1, 33, "fwd"),
+    ("edge_dx_m200", 3, 200, 130, 70, "dx"),
+    ("edge_dw_bcast_m37", 3, 37, 30, 23, "dw_bcast"),
+]
+GMM_EQUAL_MAIN = "train_l2_fwd"
+# name, G, M, K, N, group sizes (None: sampled members, as imagination's)
+GMM_RAGGED_CASES = [
+    ("assign_l1", 5, 5000, 30, 256, None),
+    ("assign_l2", 5, 5000, 256, 256, None),
+    ("assign_l3", 5, 5000, 256, 23, None),
+    # test_kernels_interpret.py's edge shapes
+    ("edge_empty_groups", 4, 64, 32, 48, (10, 0, 54, 0)),
+    ("edge_one_group_owns_all", 3, 200, 130, 70, (200, 0, 0)),
+    ("edge_straddling", 5, 37, 16, 16, (5, 8, 0, 20, 4)),
+    ("edge_g1", 1, 128, 128, 128, (128,)),
+    ("edge_thin_ends", 3, 300, 96, 40, (1, 298, 1)),
+]
+GMM_RAGGED_MAIN = "assign_l2"
+
+
+def gmm_equal_operands(gen, G, M, K, N, layout):
+    """The logical operands (a, b) of one product, laid out as the model
+    learner hands them to the kernel."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda") * 0.5
+    if layout == "fwd":
+        return rnd(G, M, K), rnd(G, K, N)
+    if layout == "fwd_bcast":
+        return rnd(M, K)[None].expand(G, M, K), rnd(G, K, N)
+    if layout == "dx":
+        return rnd(G, M, N), rnd(G, K, N).transpose(1, 2)
+    if layout == "dw":
+        return rnd(G, M, K).transpose(1, 2), rnd(G, M, N)
+    if layout == "dw_bcast":
+        return rnd(M, K)[None].expand(G, M, K).transpose(1, 2), rnd(G, M, N)
+    raise ValueError(layout)
+
+
+def gmm_bound_ms(flops: float, nbytes: float) -> tuple:
+    """The larger of f32 FLOPs on the CUDA cores and bytes over HBM."""
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _unique_bytes(t) -> int:
+    """Bytes of a (G, R, C) operand read once: a broadcast one once."""
+    n = t.numel() // t.shape[0] if t.stride(0) == 0 else t.numel()
+    return n * t.element_size()
+
+
+def _scaled_err(got, want) -> tuple:
+    err = (got - want).abs().max().item()
+    return err, GMM_TOL * max(1.0, want.abs().max().item())
+
+
+def check_gmm(gmm_cuda, gmm_ref) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {"equal": {}, "ragged": {}}
+    for name, G, M, K, N, layout in GMM_EQUAL_CASES:
+        a, b = gmm_equal_operands(gen, G, M, K, N, layout)
+        got = gmm_cuda.gmm_equal(a, b)
+        torch.cuda.synchronize()
+        want = gmm_ref.grouped_matmul(a, b)
+        err, tol = _scaled_err(got, want)
+        if not err <= tol:
+            raise RuntimeError(f"gmm_equal {name}: max abs err {err} > {tol}")
+        flops = 2.0 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+        bound, bound_by = gmm_bound_ms(
+            flops, _unique_bytes(a) + _unique_bytes(b) + got.numel() * 4)
+        rows["equal"][name] = {
+            "shape": [G, M, K, N], "layout": layout,
+            "product": [list(a.shape), list(b.shape)],
+            "max_abs_err": err, "tol": tol,
+            "ms": device_ms(lambda: gmm_cuda.gmm_equal(a, b)),
+            "plain_ms": device_ms(lambda: gmm_ref.grouped_matmul(a, b)),
+            "library_ms": device_ms(lambda: torch.bmm(a, b)),
+            "wall_ms": time_ms(lambda: gmm_cuda.gmm_equal(a, b)),
+            "bound_ms": bound, "bound_by": bound_by}
+        emit({"phase": "gmm_check", "kernel": "gmm_equal", "case": name,
+              **rows["equal"][name]})
+    for name, G, M, K, N, sizes in GMM_RAGGED_CASES:
+        if sizes is None:
+            idx = torch.randint(0, G, (M,), generator=gen, device="cuda")
+            gs = torch.bincount(idx, minlength=G).to(torch.int32)
+        else:
+            gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        lhs = torch.randn((M, K), generator=gen, device="cuda") * 0.5
+        rhs = torch.randn((G, K, N), generator=gen, device="cuda") * 0.5
+        offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"),
+                             torch.cumsum(gs, 0, dtype=torch.int32)])
+        got = gmm_cuda.gmm_ragged(lhs, rhs, offsets)
+        torch.cuda.synchronize()
+        want = gmm_ref.grouped_matmul(lhs, rhs, gs)
+        err, tol = _scaled_err(got, want)
+        if not err <= tol:
+            raise RuntimeError(f"gmm_ragged {name}: max abs err {err} > "
+                               f"{tol}")
+        bound, bound_by = gmm_bound_ms(
+            2.0 * M * K * N, (lhs.numel() + rhs.numel() + got.numel()) * 4)
+        rows["ragged"][name] = {
+            "shape": [G, M, K, N], "group_sizes": gs.tolist(),
+            "max_abs_err": err, "tol": tol,
+            "ms": device_ms(lambda: gmm_cuda.gmm_ragged(lhs, rhs, offsets)),
+            "plain_ms": device_ms(
+                lambda: gmm_ref.grouped_matmul(lhs, rhs, gs)),
+            # torch has no f32 ragged grouped product to call
+            "library_ms": None,
+            "wall_ms": time_ms(lambda: gmm_cuda.gmm_ragged(lhs, rhs,
+                                                           offsets)),
+            "bound_ms": bound, "bound_by": bound_by}
+        emit({"phase": "gmm_check", "kernel": "gmm_ragged", "case": name,
+              **rows["ragged"][name]})
+    return rows
+
+
+# ---------------------------------------------------------------- phase 4
+
 def check_model(CONFIG, init_params, api) -> dict:
     cfg = dataclasses.replace(CONFIG, num_layers=2, name=CONFIG.name + "-l2")
     model = init_params(cfg, 0)
@@ -196,7 +383,7 @@ def check_model(CONFIG, init_params, api) -> dict:
     return out
 
 
-# ---------------------------------------------------------------- phase 4
+# ---------------------------------------------------------------- phase 5
 
 def serve(CONFIG, init_params, ParameterServer, WorldModelServer,
           fa_ops):
@@ -295,6 +482,178 @@ def profile_decode(srv, cfg, ticks: int = 3) -> dict:
                                         for n, ms in top]}
 
 
+# ---------------------------------------------------------------- phase 6
+
+def model_learn(gmm_ops) -> tuple:
+    """Algorithms 1-2 through the port's worker entry points on the card.
+    Returns the learner, its model server and the phase's record."""
+    from repro_torch.core.servers import DataServer, ParameterServer
+    from repro_torch.core.workers import (DataCollectionWorker,
+                                          ModelLearningWorker)
+    from repro_torch.envs import make_env
+    from repro_torch.mbrl import dynamics as DYN
+    from repro_torch.mbrl import policy as PI
+
+    env = make_env(LEARN_ENV)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    policy_server, model_server = ParameterServer(), ParameterServer()
+    data = DataServer()
+    policy_server.push(PI.init_policy(
+        PI.PolicyConfig(env.obs_dim, env.act_dim, hidden=64), gen))
+    data.set_target(LEARN_TRAJS)
+    collector = DataCollectionWorker(env, policy_server, data, None, seed=1,
+                                     envs_per_step=LEARN_LANES)
+    cfg = DYN.EnsembleConfig(env.obs_dim, env.act_dim)
+    # early stop off: the ten epochs on the full ring all run and push
+    learner = ModelLearningWorker(cfg, data, model_server, seed=2,
+                                  max_trajs=200, early_stop=False)
+    gmm_ops.equal_launches = gmm_ops.equal_bwd_launches = 0
+    collect_ms, grants, fill_val = [], [], []
+    while True:
+        g = data.try_claim(0, LEARN_LANES)
+        if g == 0:
+            break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        collector.step(g)
+        torch.cuda.synchronize()
+        collect_ms.append((time.perf_counter() - t0) * 1e3)
+        grants.append(g)
+        fill_val.append(learner.step())
+    buf = learner.buffer
+    fill_shapes = (learner.compile_count(), learner.val_compile_count())
+    nb, bs = DYN.ring_grid(cfg, buf.capacity)
+    n_active = min(max(buf.size // bs, 1), nb)
+    depth = len(learner.params["members"]["w"])
+    epochs = []
+    for _ in range(LEARN_EPOCHS):
+        f0, b0 = gmm_ops.equal_launches, gmm_ops.equal_bwd_launches
+        v0 = model_server.version
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = learner.step()
+        torch.cuda.synchronize()
+        epochs.append({
+            "ms": (time.perf_counter() - t0) * 1e3, "val_loss": val,
+            "train_loss": float(learner.last_train_loss),
+            "launches_fwd": gmm_ops.equal_launches - f0,
+            "launches_bwd": gmm_ops.equal_bwd_launches - b0,
+            "version_step": model_server.version - v0})
+    launches = (gmm_ops.equal_launches, gmm_ops.equal_bwd_launches)
+    # per epoch: every minibatch runs the depth layers forward, each
+    # layer's dW and dX backward (the first layer's dX too: jax.grad, and
+    # so the port, differentiates the normaliser), and one masked
+    # validation forward
+    want_fwd, want_bwd = n_active * depth + depth, n_active * 2 * depth
+    vals = [e["val_loss"] for e in epochs]
+    checks = {
+        "total_pushed == total_trajs": data.total_pushed == LEARN_TRAJS,
+        "grants land exactly": sum(grants) == LEARN_TRAJS,
+        "train ring full": buf.size == buf.capacity,
+        "val ring full": buf.val_size == buf.val_capacity,
+        "one train_epoch / val_loss shape while filling": fill_shapes ==
+            (1, 1),
+        "one train_epoch / val_loss shape on the full ring":
+            (learner.compile_count(), learner.val_compile_count()) == (1, 1),
+        "one model version per epoch":
+            all(e["version_step"] == 1 for e in epochs),
+        "gmm_equal launches per epoch as the code implies":
+            all((e["launches_fwd"], e["launches_bwd"]) == (want_fwd, want_bwd)
+                for e in epochs),
+        "last val loss finite": bool(np.isfinite(vals[-1])),
+        "val loss falls": vals[-1] < vals[0],
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"model_learn invariants failed: {failed}; "
+                           f"epochs {epochs}, grants {grants}")
+    return learner, model_server, {
+        "env": LEARN_ENV, "obs_dim": env.obs_dim, "act_dim": env.act_dim,
+        "horizon": env.horizon, "ensemble": dataclasses.asdict(cfg),
+        "policy_hidden": 64, "envs_per_step": LEARN_LANES,
+        "total_trajs": data.total_pushed, "grants": grants,
+        "ring": [buf.capacity, buf.val_capacity], "grid": [nb, bs],
+        "n_active": n_active, "collect_ms_per_batch": collect_ms,
+        "fill_val_losses": fill_val, "epochs": epochs,
+        "epoch_ms": [e["ms"] for e in epochs],
+        "launches_per_epoch": [want_fwd, want_bwd],
+        "gmm_equal_launches": launches[0] + launches[1],
+        "gmm_equal_launches_fwd": launches[0],
+        "gmm_equal_launches_bwd": launches[1],
+        "model_version": model_server.version}
+
+
+def profile_epoch(learner) -> dict:
+    """Where an epoch's time goes, after the main path's counts are read:
+    ``torch.profiler`` over one more epoch on the full ring. Device time is
+    the sum of kernel times; the busy share is that over the epoch's wall
+    time under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        learner.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+    device = sum(by_name.values())
+    if not kernels or device <= 0:
+        raise RuntimeError("profiler recorded no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": device,
+            "device_busy_share": device / wall_ms, "kernels": len(kernels),
+            "gmm_equal_ms": sum(ms for n, ms in by_name.items()
+                                if "gmm_equal" in n),
+            "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
+
+
+# ---------------------------------------------------------------- phase 7
+
+def assigned_predict(learner, model_server, gmm_ops) -> dict:
+    """The consumer's call: the published φ predicts the val ring's
+    transitions, rows assigned to sampled members, through gmm_ragged."""
+    from repro_torch.mbrl import dynamics as DYN
+    params, version = model_server.pull()
+    vdata, vsize = learner.buffer.val_view()
+    obs, act = vdata["obs"][:vsize], vdata["act"][:vsize]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    idx = DYN.sample_members(params, (vsize,), gen)
+    gmm_ops.ragged_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = DYN.predict_assigned(params, obs, act, idx)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = gmm_ops.ragged_launches
+    depth = len(params["members"]["w"])
+    want = DYN.ensemble_forward(params, obs, act)[
+        idx, torch.arange(vsize, device="cuda")]
+    err = (pred - want).abs().max().item()
+    checks = {
+        "shape": tuple(pred.shape) == (vsize, obs.shape[1]),
+        "finite": bool(torch.isfinite(pred).all()),
+        "matches the selected all-member forward": err <= ASSIGNED_ATOL,
+        "one gmm_ragged launch per layer": launches == depth,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"assigned_predict failed: {failed}; max abs err "
+                           f"{err}, launches {launches}")
+    return {"rows": vsize, "model_version": version,
+            "member_counts": torch.bincount(idx, minlength=5).tolist(),
+            "max_abs_err": err, "atol": ASSIGNED_ATOL,
+            "gmm_ragged_launches": launches, "first_call_ms": wall,
+            "ms": time_ms(lambda: DYN.predict_assigned(params, obs, act, idx)),
+            "device_ms": device_ms(
+                lambda: DYN.predict_assigned(params, obs, act, idx))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -307,6 +666,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.gmm import cuda as gmm_cuda
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.kernels.gmm import ref as gmm_ref
     from repro_torch.models import api
     from repro_torch.models.lm import init_params
     from repro_torch.serve import WorldModelServer
@@ -319,7 +681,7 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    sources = [fa_cuda.SOURCE]
+    sources = [fa_cuda.SOURCE, gmm_cuda.SOURCE]
     t0 = time.perf_counter()
     built = build.build(sources)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -328,13 +690,24 @@ def main() -> int:
                     for line in info["log"].splitlines() if "Used" in line]})
 
     rows = check_attention(fa_ops, fa_ref)
+    gmm_rows = check_gmm(gmm_cuda, gmm_ref)
     emit({"phase": "model_check", **check_model(CONFIG, init_params, api)})
     srv, served = serve(CONFIG, init_params, ParameterServer,
                         WorldModelServer, fa_ops)
     emit({"phase": "serve", **served})
     emit({"phase": "decode_profile", **profile_decode(srv, CONFIG)})
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    learner, model_server, learned = model_learn(gmm_ops)
+    emit({"phase": "model_learn", **learned})
+    emit({"phase": "epoch_profile", **profile_epoch(learner)})
+    assigned = assigned_predict(learner, model_server, gmm_ops)
+    emit({"phase": "assigned_predict", **assigned})
 
     main_row = rows[MAIN_PATH_CASE]
+    eq, rg = (gmm_rows["equal"][GMM_EQUAL_MAIN],
+              gmm_rows["ragged"][GMM_RAGGED_MAIN])
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": str(fa_cuda.SOURCE.relative_to(ROOT)),
@@ -343,7 +716,27 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"], "shape": MAIN_PATH_CASE}]})
+        "library_ms": main_row["library_ms"], "shape": MAIN_PATH_CASE}, {
+        "name": "gmm_equal", "route": "cuda",
+        "source": str(gmm_cuda.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/gmm/pallas.py:47",
+        "launches": learned["gmm_equal_launches"],
+        "launches_fwd": learned["gmm_equal_launches_fwd"],
+        "launches_bwd": learned["gmm_equal_launches_bwd"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in gmm_rows["equal"].values()),
+        "ms": eq["ms"], "plain_ms": eq["plain_ms"],
+        "bound_ms": eq["bound_ms"], "bound_by": eq["bound_by"],
+        "library_ms": eq["library_ms"], "shape": GMM_EQUAL_MAIN}, {
+        "name": "gmm_ragged", "route": "cuda",
+        "source": str(gmm_cuda.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/gmm/pallas.py:104",
+        "launches": assigned["gmm_ragged_launches"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in gmm_rows["ragged"].values()),
+        "ms": rg["ms"], "plain_ms": rg["plain_ms"],
+        "bound_ms": rg["bound_ms"], "bound_by": rg["bound_by"],
+        "library_ms": rg["library_ms"], "shape": GMM_RAGGED_MAIN}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,22 +1,28 @@
-"""Versioned parameter store of the serving tier (port of the in-process
-``ParameterServer`` and of ``BackpressureError`` in ``repro/core/servers.py``).
+"""Servers of the paper's Fig. 1a: the port of the in-process
+``ParameterServer``, ``DataServer``, ``ReplayBuffer`` and of
+``BackpressureError`` in ``repro/core/servers.py``.
 
-Values stay on the device. ``push`` snapshots every tensor with a device
-copy (``clone``), so a published version is isolated from buffers the pusher
-goes on to update in place. ``pull_if_newer`` on an unchanged version is a
-lock and an integer compare: no copy, no tree traversal, no host sync.
+Values stay on the device. ``ParameterServer.push`` snapshots every tensor
+of a tree (a serving state dict, or an MBRL tree of lists and dicts) with a
+device copy (``clone``), so a published version is isolated from buffers
+the pusher goes on to update in place. ``pull_if_newer`` on an unchanged
+version is a lock and an integer compare: no copy, no tree traversal, no
+host sync.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Mapping
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.utils.tree import tree_map
+
 
 class ParameterServer:
-    """Versioned store of state dicts (name -> tensor), Alg. 1/2/3
-    'Pull/Push parameters'."""
+    """Versioned store of tensor trees, Alg. 1/2/3 'Pull/Push
+    parameters'."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -24,12 +30,11 @@ class ParameterServer:
         self._version = 0
 
     @staticmethod
-    def _snapshot(value: Mapping[str, torch.Tensor]
-                  ) -> Dict[str, torch.Tensor]:
+    def _snapshot(value):
         # device->device copy; never a host transfer
-        return {k: t.detach().clone() for k, t in value.items()}
+        return tree_map(lambda t: t.detach().clone(), value)
 
-    def push(self, value: Mapping[str, torch.Tensor]) -> int:
+    def push(self, value) -> int:
         snap = self._snapshot(value)    # copy outside the lock
         with self._lock:
             self._value = snap
@@ -59,3 +64,255 @@ class ParameterServer:
 class BackpressureError(RuntimeError):
     """A bounded queue stayed full past its timeout: the consumer is not
     keeping up with its producers."""
+
+
+class DataServer:
+    """FIFO trajectory buffer server (Alg. 1 'Push data', Alg. 2 line 3:
+    'move all trajectories from the remote buffer').
+
+    Multi-producer: any number of collectors push concurrently; one lock
+    keeps ``total_pushed`` exact under interleaved pushes. The global
+    stopping criterion is a ticket counter: ``set_target(n)`` arms it and
+    ``try_claim(collector_id, k)`` grants ``min(k, remaining)`` collection
+    slots under the lock, so a fleet of farms lands on ``total_pushed ==
+    n`` EXACTLY. A denied claim sleeps ``claim_backoff`` seconds before
+    returning. Pushed trajectories are stored by reference (device
+    tensors, no host copy); a pushed batch is unstacked into per-lane
+    views."""
+
+    def __init__(self, *, claim_backoff: float = 0.002):
+        self.claim_backoff = float(claim_backoff)
+        self._lock = threading.Lock()
+        self._items: List[Any] = []
+        self._total = 0
+        self._target: Optional[int] = None
+        self._tickets = 0
+        self._inflight: Dict[int, int] = {}
+
+    def push(self, traj, *, collector_id: int = 0) -> int:
+        with self._lock:
+            self._items.append(traj)
+            self._total += 1
+            self._dec_inflight(collector_id, 1)
+            return self._total
+
+    def push_batch(self, batch, n: int, *, collector_id: int = 0) -> int:
+        """Push ``n`` trajectories stacked as one batch (dict of
+        (n, H, ...) tensors — a farm step's output). Consumers see
+        per-trajectory dicts; ``total_pushed`` moves by n in one step."""
+        lanes = [{k: v[i] for k, v in batch.items()} for i in range(n)]
+        with self._lock:
+            self._items.extend(lanes)
+            self._total += n
+            self._dec_inflight(collector_id, n)
+            return self._total
+
+    def set_target(self, total: int) -> None:
+        """Arm the stopping criterion: from now on ``try_claim`` grants
+        exactly ``total - total_pushed`` more collection slots."""
+        with self._lock:
+            self._target = int(total)
+            self._tickets = self._total
+
+    def try_claim(self, collector_id: int = 0, k: int = 1) -> int:
+        """Reserve up to ``k`` collection slots toward the armed target,
+        in flight for ``collector_id`` until the matching push lands.
+        Returns ``min(k, remaining)``, 0 once the target is fully claimed;
+        with no target, ``k``."""
+        k = int(k)
+        with self._lock:
+            g = k if self._target is None else \
+                min(k, max(self._target - self._tickets, 0))
+            if g > 0:
+                self._tickets += g
+                self._inflight[collector_id] = \
+                    self._inflight.get(collector_id, 0) + g
+                return g
+        time.sleep(self.claim_backoff)
+        return 0
+
+    def refund_inflight(self, collector_id: int) -> int:
+        """Return every ticket ``collector_id`` claimed but never pushed
+        (its collector died mid-batch). Returns the number refunded."""
+        with self._lock:
+            g = self._inflight.pop(collector_id, 0)
+            self._tickets -= g
+            return g
+
+    def _dec_inflight(self, collector_id: int, n: int) -> None:
+        # already holding self._lock; pushes need no claim, so clamp at 0
+        left = self._inflight.get(collector_id, 0) - n
+        if left > 0:
+            self._inflight[collector_id] = left
+        else:
+            self._inflight.pop(collector_id, None)
+
+    def drain(self) -> List[Any]:
+        """Move ALL pending trajectories to the caller (empties server)."""
+        with self._lock:
+            items, self._items = self._items, []
+            return items
+
+    @property
+    def total_pushed(self) -> int:
+        with self._lock:
+            return self._total
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._items)
+
+
+class ReplayBuffer:
+    """Preallocated fixed-capacity transition ring on the device, with a
+    held-out validation ring (Alg. 2: the model learner trains on its LOCAL
+    buffer; §4 'The local buffer is of fixed size and first-in-first-out').
+
+    Every ``round(1 / holdout_frac)``-th trajectory goes to the validation
+    ring. ``train_view``/``val_view`` return the full-capacity tensors plus
+    the count of valid rows, so a consumer's shapes never change as data
+    accumulates. A drain of M trajectories lands in bursts: one scatter per
+    chunk of up to ``burst_capacity`` equal-horizon trajectories whose
+    target rows are distinct, and a later chunk overwrites an earlier one
+    exactly as sequential FIFO writes would — the same ring contents as the
+    reference's ``_ring_write_burst``. Writes are in place (``index_copy_``):
+    a view is a borrow, to re-fetch after every insert.
+    """
+
+    def __init__(self, capacity: int, *, val_capacity: Optional[int] = None,
+                 holdout_frac: float = 0.2, burst_capacity: int = 8,
+                 device=None):
+        self.burst_capacity = max(int(burst_capacity), 1)
+        self.capacity = int(capacity)
+        self.val_capacity = int(val_capacity if val_capacity is not None
+                                else max(self.capacity // 4, 1))
+        self.holdout_frac = holdout_frac
+        self._every = (max(int(round(1 / holdout_frac)), 2)
+                       if holdout_frac > 0 else 0)
+        self._device = device
+        self._train: Optional[Dict[str, torch.Tensor]] = None
+        self._val: Optional[Dict[str, torch.Tensor]] = None
+        self._cursor = 0          # next train write position (transitions)
+        self._written = 0         # total train transitions ever written
+        self._val_cursor = 0
+        self._val_written = 0
+        self._trajs = 0           # total trajectories ever seen
+
+    def _alloc(self, traj) -> None:
+        dev = self._device
+        if dev is None:
+            dev = next(iter(traj.values())).device
+
+        def zeros(t, cap):
+            return torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype,
+                               device=dev)
+        self._train = {k: zeros(v, self.capacity) for k, v in traj.items()}
+        if self._every:     # holdout_frac == 0 never writes the val ring
+            self._val = {k: zeros(v, self.val_capacity)
+                         for k, v in traj.items()}
+
+    def _scatter(self, flat, rows: int, val: bool) -> None:
+        """Write ``rows`` flattened transitions at the ring's cursor
+        (wrapping); ``rows`` never exceeds the ring's capacity."""
+        ring = self._val if val else self._train
+        cap = self.val_capacity if val else self.capacity
+        cursor = self._val_cursor if val else self._cursor
+        dev = next(iter(ring.values())).device
+        idx = (cursor + torch.arange(rows, device=dev)) % cap
+        for k, buf in ring.items():
+            buf.index_copy_(0, idx, flat[k].to(device=dev, dtype=buf.dtype))
+        if val:
+            self._val_cursor = (cursor + rows) % cap
+            self._val_written += rows
+        else:
+            self._cursor = (cursor + rows) % cap
+            self._written += rows
+
+    def _write_one(self, traj, val: bool) -> None:
+        """One trajectory into one ring. FIFO semantics for a trajectory
+        longer than its ring: keep the last ``cap`` transitions."""
+        cap = self.val_capacity if val else self.capacity
+        h = int(next(iter(traj.values())).shape[0])
+        if h > cap:
+            traj, h = {k: v[-cap:] for k, v in traj.items()}, cap
+        self._scatter(traj, h, val)
+
+    def _write_chunk(self, chunk, h: int, val: bool) -> None:
+        flat = {k: torch.cat([t[k] for t in chunk]) for k in chunk[0]}
+        self._scatter(flat, len(chunk) * h, val)
+
+    def _burst_to_ring(self, group, val: bool) -> None:
+        """Write a group of trajectories destined for ONE ring in chunks
+        capped at ``burst_capacity`` trajectories AND at the ring's
+        capacity in rows, so every target index in a chunk is distinct."""
+        cap = self.val_capacity if val else self.capacity
+        i = 0
+        while i < len(group):
+            h0 = int(next(iter(group[i].values())).shape[0])
+            chunk, rows = [group[i]], h0
+            i += 1
+            while i < len(group) and len(chunk) < self.burst_capacity:
+                h = int(next(iter(group[i].values())).shape[0])
+                if h != h0 or rows + h > cap:
+                    break
+                chunk.append(group[i])
+                rows += h
+                i += 1
+            if len(chunk) == 1:
+                self._write_one(chunk[0], val)
+            else:
+                self._write_chunk(chunk, h0, val)
+
+    def _is_val(self) -> bool:
+        return bool(self._every and self._trajs % self._every == 0)
+
+    def add_traj(self, traj) -> None:
+        """Insert one trajectory (dict of (H, ...) tensors)."""
+        if self._train is None:
+            self._alloc(traj)
+        self._trajs += 1
+        self._write_one(traj, val=self._is_val())
+
+    def add_trajs(self, trajs) -> None:
+        """Insert a BURST of trajectories (a fleet drain). The train/val
+        interleave advances per trajectory in arrival order, exactly as
+        repeated ``add_traj`` calls would."""
+        trajs = list(trajs)
+        if not trajs:
+            return
+        if self._train is None:
+            self._alloc(trajs[0])
+        groups = {False: [], True: []}
+        for traj in trajs:
+            self._trajs += 1
+            groups[self._is_val()].append(traj)
+        self._burst_to_ring(groups[False], val=False)
+        self._burst_to_ring(groups[True], val=True)
+
+    def extend(self, trajs) -> int:
+        trajs = list(trajs)
+        if len(trajs) == 1:
+            self.add_traj(trajs[0])
+        elif trajs:
+            self.add_trajs(trajs)
+        return len(trajs)
+
+    def train_view(self) -> Tuple[Optional[Dict[str, torch.Tensor]], int]:
+        """(full-capacity storage, number of valid rows)."""
+        return self._train, self.size
+
+    def val_view(self) -> Tuple[Optional[Dict[str, torch.Tensor]], int]:
+        return self._val, self.val_size
+
+    @property
+    def size(self) -> int:
+        return min(self._written, self.capacity)
+
+    @property
+    def val_size(self) -> int:
+        return min(self._val_written, self.val_capacity)
+
+    @property
+    def total_seen(self) -> int:
+        """Total trajectories ever inserted (incl. evicted ones)."""
+        return self._trajs

@@ -1,0 +1,267 @@
+"""Dynamics-model ensembles (the paper's p-hat_phi_1..K): the port of the
+model-learning half of ``repro/mbrl/dynamics.py`` and of its assigned
+predictor.
+
+An ensemble of K MLPs trained on (s, a) -> delta-s with input/output
+normalisation; sampling uses a uniform prior over ensemble members
+(Section 3 of the paper). Params are the reference's tree,
+``{"members": {"w": [(K, a, b) ...], "b": [(K, b) ...]}, "norm": {...}}``.
+
+Training evaluates every member on every row (``ensemble_mlp``: the
+``gmm_equal`` kernel on the card, forward and backward). ``predict_assigned``
+evaluates one member per row (``ensemble_mlp_select``: the ``gmm_ragged``
+kernel). Draws are injected: member indices by ``sample_members`` from an
+explicit generator, and the ring trainer's minibatch index grid by the
+caller (``ModelLearningWorker`` draws it, or replays one).
+
+Not ported yet: ``step_fused``, ``horizon_plan``, ``hoisted_noise``,
+``imagine_rollout`` (imagination) and the legacy ``make_model_trainer``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.gmm import ops as gmm_ops
+from repro_torch.optim.optimizers import adam, apply_updates
+from repro_torch.utils.shape_stats import ShapeCounted
+from repro_torch.utils.tree import tree_leaves, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class EnsembleConfig:
+    obs_dim: int
+    act_dim: int
+    hidden: int = 256
+    depth: int = 2
+    n_models: int = 5
+    lr: float = 1e-3
+    train_batch: int = 256
+    holdout_frac: float = 0.2
+
+
+def _dims(cfg: EnsembleConfig):
+    return [cfg.obs_dim + cfg.act_dim] + [cfg.hidden] * cfg.depth \
+        + [cfg.obs_dim]
+
+
+def init_member(cfg: EnsembleConfig, generator: torch.Generator):
+    """One member on the generator's device: normal weights scaled by
+    fan_in ** -0.5, zero biases, as the reference draws them."""
+    dims, dev = _dims(cfg), generator.device
+    return {
+        "w": [torch.randn((a, b), generator=generator, device=dev)
+              * (a ** -0.5) for a, b in zip(dims[:-1], dims[1:])],
+        "b": [torch.zeros((b,), device=dev) for b in dims[1:]],
+    }
+
+
+def init_ensemble(cfg: EnsembleConfig, generator: torch.Generator):
+    members = [init_member(cfg, generator) for _ in range(cfg.n_models)]
+    dev = generator.device
+    din = cfg.obs_dim + cfg.act_dim
+    norm = {"mu_in": torch.zeros(din, device=dev),
+            "sig_in": torch.ones(din, device=dev),
+            "mu_out": torch.zeros(cfg.obs_dim, device=dev),
+            "sig_out": torch.ones(cfg.obs_dim, device=dev)}
+    return {"members": {
+        "w": [torch.stack([m["w"][i] for m in members])
+              for i in range(len(members[0]["w"]))],
+        "b": [torch.stack([m["b"][i] for m in members])
+              for i in range(len(members[0]["b"]))]},
+        "norm": norm}
+
+
+def update_normalizer(state, obs, act, next_obs):
+    return {**state,
+            "norm": masked_norm_stats(obs, act, next_obs, obs.shape[0])}
+
+
+def member_forward(member, xn):
+    h = xn
+    n = len(member["w"])
+    for i, (w, b) in enumerate(zip(member["w"], member["b"])):
+        h = h @ w + b
+        if i < n - 1:
+            h = torch.tanh(h)
+    return h
+
+
+def _normalized_input(params, obs, act):
+    n = params["norm"]
+    return (torch.cat([obs, act], -1) - n["mu_in"]) / n["sig_in"]
+
+
+def ensemble_forward(params, obs, act):
+    """Per-member predictions. obs/act: (B, ·) -> (K, B, obs_dim)."""
+    n = params["norm"]
+    dyn = gmm_ops.ensemble_mlp(params["members"],
+                               _normalized_input(params, obs, act))
+    return obs[None] + dyn * n["sig_out"] + n["mu_out"]
+
+
+def n_members(params) -> int:
+    return params["members"]["w"][0].shape[0]
+
+
+def sample_members(params, shape, generator: torch.Generator):
+    """Uniform prior over ensemble members (Sec. 3): I ~ U[K], iid per
+    element of ``shape``, on the generator's device."""
+    return torch.randint(0, n_members(params), tuple(shape),
+                         generator=generator, device=generator.device)
+
+
+def predict_assigned(params, obs, act, member_idx):
+    """Next-state prediction with rows pre-assigned to members.
+
+    member_idx: (B,) int in [0, K). Row b is evaluated by member
+    ``member_idx[b]`` ONLY — via the sort / ragged-grouped-matmul /
+    unsort path (``ensemble_mlp_select``), so a batch costs B rows of
+    FLOPs, not K*B. Identical output to ``predict`` under the same
+    assignment."""
+    n = params["norm"]
+    dyn = gmm_ops.ensemble_mlp_select(
+        params["members"], _normalized_input(params, obs, act), member_idx)
+    return obs + dyn * n["sig_out"] + n["mu_out"]
+
+
+def predict(params, obs, act, member_idx):
+    """Uniform-prior ensemble sample, the legacy compute-all-then-select
+    path: it PAYS for all K members. ``member_idx`` (B,) is the draw the
+    reference makes inside (``sample_members(params, (B,), generator)``)."""
+    preds = ensemble_forward(params, obs, act)           # (K, B, D)
+    return torch.take_along_dim(preds, member_idx[None, :, None].long(),
+                                dim=0)[0]
+
+
+def masked_mse_loss(params, obs, act, next_obs, weights):
+    """MSE over rows where ``weights`` is 1 — used against full-capacity
+    ring storage, where rows past the valid count are garbage."""
+    n = params["norm"]
+    target = (next_obs - obs - n["mu_out"]) / n["sig_out"]
+    pred = gmm_ops.ensemble_mlp(params["members"],
+                                _normalized_input(params, obs, act))
+    per_row = torch.mean((pred - target[None]) ** 2, dim=(0, 2))   # (B,)
+    w = weights.to(per_row.dtype)
+    return torch.sum(per_row * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def mse_loss(params, obs, act, next_obs):
+    return masked_mse_loss(params, obs, act, next_obs,
+                           torch.ones(obs.shape[0], dtype=obs.dtype,
+                                      device=obs.device))
+
+
+def value_and_grad(fn, params, *args):
+    """(fn(params, *args), d fn / d params) for a scalar ``fn``, with the
+    gradient as a tree shaped like ``params`` — every leaf differentiated,
+    as ``jax.value_and_grad`` does (the normaliser's leaves included)."""
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    with torch.enable_grad():
+        value = fn(tree_unflatten(params, leaves), *args)
+        grads = torch.autograd.grad(value, leaves)
+    return value.detach(), tree_unflatten(params, grads)
+
+
+def _sgd_epoch(opt, params, opt_state, obs, act, next_obs, batches,
+               n_active: Optional[int] = None):
+    """Minibatch SGD over the first ``n_active`` rows of a precomputed
+    (nb, bs) index grid (all of them when ``n_active`` is None).
+
+    The reference scans the whole grid and skips rows past a traced
+    ``n_active`` with ``lax.cond``; here ``n_active`` is a host int, so
+    the loop stops there. The summed loss is divided by ``n_active``
+    (the mean over the grid without a count), the same math."""
+    nb = batches.shape[0]
+    steps = nb if n_active is None else n_active
+    total = torch.zeros((), dtype=obs.dtype, device=obs.device)
+    for i in range(steps):
+        idx = batches[i]
+        loss, g = value_and_grad(mse_loss, params, obs[idx], act[idx],
+                                 next_obs[idx])
+        with torch.no_grad():
+            upd, opt_state = opt.update(g, opt_state, params)
+            params = apply_updates(params, upd)
+        total = total + loss
+    return params, opt_state, total / max(steps, 1)
+
+
+def masked_norm_stats(obs, act, next_obs, size: int):
+    """Normalizer stats against ring storage: moments over the first
+    ``size`` valid rows, by mask, so shapes stay those of the ring.
+    Returns only the ``norm`` dict."""
+    w = (torch.arange(obs.shape[0], device=obs.device) < size).to(obs.dtype)
+    tot = torch.clamp(w.sum(), min=1.0)
+
+    def moments(v):
+        mu = (v * w[:, None]).sum(0) / tot
+        var = (((v - mu) ** 2) * w[:, None]).sum(0) / tot
+        return mu, torch.sqrt(var) + 1e-4
+
+    x = torch.cat([obs, act], -1)
+    dy = next_obs - obs
+    mu_in, sig_in = moments(x)
+    mu_out, sig_out = moments(dy)
+    return {"mu_in": mu_in, "sig_in": sig_in,
+            "mu_out": mu_out, "sig_out": sig_out}
+
+
+def ring_grid(cfg: EnsembleConfig, capacity: int, *,
+              epoch_batches: Optional[int] = None,
+              max_epoch_batches: int = 64) -> Tuple[int, int]:
+    """The ring trainer's static minibatch grid ``(nb, bs)``."""
+    bs = min(cfg.train_batch, max(int(capacity), 1))
+    nb = epoch_batches if epoch_batches is not None else \
+        min(max(int(capacity) // bs, 1), max_epoch_batches)
+    return nb, bs
+
+
+def make_ring_trainer(cfg: EnsembleConfig, capacity: int,
+                      *, epoch_batches: Optional[int] = None,
+                      max_epoch_batches: int = 64):
+    """Trainer over fixed-capacity ring storage. Returns
+    ``(opt, train_epoch, val_loss, update_norm)``:
+
+    * ``update_norm(data, size)`` — masked normalizer stats (the ``norm``
+      dict only).
+    * ``train_epoch(params, opt_state, data, size, idx)`` — Adam over the
+      static ``(nb, bs)`` index grid ``idx`` (see :func:`ring_grid`),
+      drawn by the caller uniformly with replacement from
+      ``[0, max(size, 1))``, as the reference draws it inside its jit.
+      Only the first ``clip(size // bs, 1, nb)`` rows of the grid apply,
+      so one epoch is one pass over the CURRENT data while the shapes
+      never change.
+    * ``val_loss(params, data, size)`` — masked MSE over a val ring.
+
+    ``train_epoch`` and ``val_loss`` count the distinct input shapes they
+    see (``shape_count``): the eager form of the reference's "compiles
+    exactly once regardless of how full the buffer is".
+    """
+    opt = adam(cfg.lr)
+    nb, bs = ring_grid(cfg, capacity, epoch_batches=epoch_batches,
+                       max_epoch_batches=max_epoch_batches)
+
+    def _train_epoch(params, opt_state, data, size: int, idx):
+        if tuple(idx.shape) != (nb, bs):
+            raise ValueError(f"index grid {tuple(idx.shape)}, expected "
+                             f"{(nb, bs)}")
+        # one pass over the VALID region per epoch, not the whole grid
+        n_active = min(max(int(size) // bs, 1), nb)
+        return _sgd_epoch(opt, params, opt_state, data["obs"], data["act"],
+                          data["next_obs"], idx, n_active=n_active)
+
+    @torch.no_grad()
+    def _val_loss(params, data, size: int):
+        obs = data["obs"]
+        w = torch.arange(obs.shape[0], device=obs.device) < size
+        return masked_mse_loss(params, obs, data["act"], data["next_obs"], w)
+
+    @torch.no_grad()
+    def _update_norm(data, size: int):
+        return masked_norm_stats(data["obs"], data["act"],
+                                 data["next_obs"], size)
+
+    return (opt, ShapeCounted(_train_epoch), ShapeCounted(_val_loss),
+            ShapeCounted(_update_norm))

@@ -9,7 +9,6 @@ at most one prefill shape per prompt bucket.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
@@ -17,33 +16,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.models import lm as LM
 from repro_torch.models.config import InputShape, ModelConfig
-
-
-def _signature(x) -> Any:
-    if isinstance(x, torch.Tensor):
-        return (tuple(x.shape), x.dtype, x.device)
-    if isinstance(x, dict):
-        return tuple((k, _signature(v)) for k, v in sorted(x.items()))
-    if isinstance(x, (list, tuple)):
-        return tuple(_signature(v) for v in x)
-    return type(x).__name__  # e.g. the LM: one weight shape per config
-
-
-class ShapeCounted:
-    """Callable wrapper that records the distinct input shapes of its
-    calls: the eager counterpart of a jit's trace count."""
-
-    def __init__(self, fn: Callable):
-        self.fn = fn
-        self._seen = set()
-
-    def __call__(self, *args):
-        self._seen.add(_signature(args))
-        return self.fn(*args)
-
-    @property
-    def shape_count(self) -> int:
-        return len(self._seen)
+from repro_torch.utils.shape_stats import ShapeCounted
 
 
 @dataclasses.dataclass

@@ -1,11 +1,19 @@
-"""Converter from the reference's parameter pytree to the port's state.
+"""Converters from the reference's parameter pytrees to the port's.
 
-The tests build a model with the JAX package, turn its ``init_params``
-tree into numpy arrays (``np.asarray`` on the JAX side), and hand it here.
-The stacked ``layers`` axis is unstacked into the port's per-layer
-``ModuleList``, so ``layers/attn/wq[i]`` becomes ``layers.i.attn.wq``.
-This module imports no JAX: bf16 leaves arrive as numpy ``bfloat16``
-arrays (ml_dtypes) and are reinterpreted bit for bit.
+The tests build params with the JAX package, turn the tree into numpy
+arrays (``np.asarray`` on the JAX side), and hand it here. Two layouts:
+
+* the LM (``state_from_jax``): the stacked ``layers`` axis is unstacked
+  into the port's per-layer ``ModuleList``, so ``layers/attn/wq[i]``
+  becomes ``layers.i.attn.wq``;
+* the MBRL trees (``tree_from_jax`` / ``tree_to_numpy``): the dynamics
+  ensemble ``{"members": {"w": [(K,a,b) ...], "b": [...]}, "norm": {...}}``
+  and the policy ``{"w": [...], "b": [...], "log_std": ...}`` keep their
+  dict and list structure leaf for leaf.
+
+Weights are carried across through these; the port never re-derives a
+``jax.random`` draw. This module imports no JAX: bf16 leaves arrive as
+numpy ``bfloat16`` arrays (ml_dtypes) and are reinterpreted bit for bit.
 """
 from __future__ import annotations
 
@@ -13,6 +21,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from repro_torch.utils.tree import tree_map
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
@@ -50,3 +60,13 @@ def state_from_jax(tree: Mapping[str, Any], device="cpu"
     if extra:
         raise ValueError(f"no port for parameter groups {sorted(extra)}")
     return {k: to_tensor(v, device) for k, v in flat.items()}
+
+
+def tree_from_jax(tree, device="cpu"):
+    """A numpy tree (dicts, lists, tuples) -> the same tree of tensors."""
+    return tree_map(lambda a: to_tensor(a, device), tree)
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors -> the same tree of numpy arrays on the host."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

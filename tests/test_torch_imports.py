@@ -14,6 +14,12 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
+# the modules of the collect -> learn slice, each under the scan above
+SLICE2 = ["utils/tree.py", "optim/optimizers.py", "envs/base.py",
+          "envs/classic.py", "envs/arm.py", "mbrl/policy.py",
+          "kernels/gmm/ref.py", "kernels/gmm/cuda.py", "kernels/gmm/ops.py",
+          "mbrl/dynamics.py", "mbrl/early_stop.py", "core/servers.py",
+          "core/workers.py", "testing/parity.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -30,6 +36,11 @@ def _imported_roots(path: pathlib.Path):
 def test_no_jax_or_reference_import(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("module", SLICE2)
+def test_slice_module_is_scanned(module):
+    assert PORT / module in FILES
 
 
 def test_every_module_imports_without_jax_or_a_build():

@@ -12,6 +12,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.gmm import cuda as gmm_cuda
+from repro_torch.kernels.gmm import ops as gmm_ops
+from repro_torch.kernels.gmm import ref as gmm_ref
 
 # kernel vs plain version, both rounding one f32 result to the output dtype:
 # f32 outputs differ only by the order of f32 sums; bf16 outputs by up to
@@ -59,3 +62,131 @@ def test_flash_attention_kernel_refuses_unsupported_head_dim(card):
     q = torch.zeros((1, 8, 2, 32), device=card)
     with pytest.raises(ValueError, match="head dims"):
         fa_ops.attention(q, q, q)
+
+
+# gmm kernels vs plain products, f32 both (no TF32): sums in another order,
+# relative to the result's scale
+GMM_TOL = 1e-4
+
+GMM_EQUAL_CASES = [
+    # G, M, K, N
+    (5, 256, 30, 256),      # the ensemble's first layer
+    (5, 256, 256, 23),      # its last
+    (5, 37, 32, 23),        # M not a tile multiple
+    (1, 128, 64, 64),       # G=1
+    (3, 70, 1, 33),         # K=1
+    (3, 200, 130, 70),
+]
+GMM_RAGGED_CASES = [
+    # G, M, K, N, group sizes (test_kernels_interpret.py's edge shapes)
+    (4, 64, 32, 48, (10, 0, 54, 0)),      # empty groups
+    (3, 200, 130, 70, (200, 0, 0)),       # one group owns the full batch
+    (5, 37, 16, 16, (5, 8, 0, 20, 4)),    # straddling odd-size tiles
+    (1, 128, 128, 128, (128,)),           # G=1
+    (3, 300, 96, 40, (1, 298, 1)),
+    (5, 5000, 256, 23, (1000, 990, 1010, 1003, 997)),
+]
+
+
+def _gmm_close(got, want):
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert err <= GMM_TOL * scale, (err, scale)
+
+
+def _randn(rng, shape, card):
+    return torch.from_numpy(
+        (0.5 * rng.standard_normal(shape)).astype(np.float32)).to(card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GMM_EQUAL_CASES)
+@pytest.mark.parametrize("bcast", [False, True])
+def test_gmm_equal_forward_and_backward_products_match_ref(card, case,
+                                                           bcast):
+    """Forward, dX = dY W^T and dW = X^T dY, each read in place from
+    transposed or broadcast (group stride 0) operands."""
+    G, M, K, N = case
+    rng = np.random.default_rng(1)
+    x = (_randn(rng, (M, K), card)[None].expand(G, M, K) if bcast
+         else _randn(rng, (G, M, K), card))
+    w = _randn(rng, (G, K, N), card)
+    dy = _randn(rng, (G, M, N), card)
+    for a, b in ((x, w), (dy, w.transpose(1, 2)), (x.transpose(1, 2), dy)):
+        got = gmm_cuda.gmm_equal(a, b)
+        torch.cuda.synchronize()
+        _gmm_close(got, gmm_ref.grouped_matmul(a, b))
+
+
+@pytest.mark.gpu
+def test_gmm_equal_function_gradients_match_ref_autograd(card):
+    """The ensemble MLP's gradients through the kernel's Function equal
+    autograd of the plain version, and each launch is counted."""
+    rng = np.random.default_rng(2)
+    K, B, dims = 5, 300, (30, 64, 64, 23)
+
+    def leaves():
+        return ([_randn(rng, (K, a, b), card).requires_grad_(True)
+                 for a, b in zip(dims[:-1], dims[1:])],
+                [_randn(rng, (K, b), card).requires_grad_(True)
+                 for b in dims[1:]],
+                _randn(rng, (B, dims[0]), card).requires_grad_(True))
+    ws, bs, x = leaves()
+    target = _randn(rng, (K, B, dims[-1]), card)
+    grads = {}
+    for impl in ("cuda", "ref"):
+        f0, b0 = gmm_ops.equal_launches, gmm_ops.equal_bwd_launches
+        out = gmm_ops.ensemble_mlp({"w": ws, "b": bs}, x, impl=impl)
+        loss = ((out - target) ** 2).mean()
+        grads[impl] = torch.autograd.grad(loss, ws + bs + [x])
+        torch.cuda.synchronize()
+        if impl == "cuda":
+            assert gmm_ops.equal_launches - f0 == 3
+            assert gmm_ops.equal_bwd_launches - b0 == 6
+    for got, want in zip(grads["cuda"], grads["ref"]):
+        _gmm_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GMM_RAGGED_CASES)
+def test_gmm_ragged_matches_ref(card, case):
+    G, M, K, N, sizes = case
+    rng = np.random.default_rng(3)
+    lhs, rhs = _randn(rng, (M, K), card), _randn(rng, (G, K, N), card)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=card)
+    before = gmm_ops.ragged_launches
+    got = gmm_ops.grouped_matmul(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert gmm_ops.ragged_launches == before + 1
+    _gmm_close(got, gmm_ref.grouped_matmul(lhs, rhs, gs))
+
+
+@pytest.mark.gpu
+def test_gmm_ragged_select_matches_ref_and_refuses_a_backward(card):
+    rng = np.random.default_rng(4)
+    K, B, dims = 5, 777, (30, 64, 23)
+    members = {"w": [_randn(rng, (K, a, b), card)
+                     for a, b in zip(dims[:-1], dims[1:])],
+               "b": [_randn(rng, (K, b), card) for b in dims[1:]]}
+    x = _randn(rng, (B, dims[0]), card)
+    idx = torch.from_numpy(rng.integers(0, K - 1, B)).to(card)  # one empty
+    got = gmm_ops.ensemble_mlp_select(members, x, idx)
+    want = gmm_ops.ensemble_mlp(members, x, impl="ref")[
+        idx, torch.arange(B, device=card)]
+    _gmm_close(got, want)
+    x.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ragged"):
+        gmm_ops.ensemble_mlp_select(members, x, idx).sum().backward()
+
+
+@pytest.mark.gpu
+def test_gmm_kernels_refuse_what_they_cannot_run(card):
+    a = torch.zeros((2, 8, 4), device=card)
+    with pytest.raises(ValueError, match="float32"):
+        gmm_cuda.gmm_equal(a.double(), a.transpose(1, 2).double())
+    with pytest.raises(ValueError, match="dense"):
+        gmm_cuda.gmm_equal(a[:, ::2], torch.zeros((2, 4, 3), device=card))
+    with pytest.raises(ValueError, match="offsets"):
+        gmm_cuda.gmm_ragged(a[0], torch.zeros((3, 4, 5), device=card),
+                            torch.tensor([0, 8], dtype=torch.int32,
+                                         device=card))
