@@ -14,6 +14,9 @@ Phases, each printing one JSON line:
 3. ``gmm_check``: the same for the grouped-matmul kernels: ``gmm_equal``
    forward and its two backward products at the model learner's shapes,
    ``gmm_ragged`` at the assigned predictor's, and both at edge shapes.
+   Their times are device time per call, from CUDA events around the
+   replay of a CUDA graph of many calls, so the host's launch cost drops
+   out.
 4. ``model_check``: GLM-4-9B at full width, cut to 2 layers; prefill logits
    through the kernel against the same through the plain attention.
 5. ``serve``: ``WorldModelServer`` on the full 40-layer GLM-4-9B with a
@@ -115,24 +118,58 @@ def time_ms(fn, target_ms: float = 200.0) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, n: int = 20) -> float:
-    """Device time per call of ``fn``: the summed durations of every kernel
-    it launches, by ``torch.profiler`` over ``n`` calls after a warm-up.
-    At the MBRL shapes a kernel runs for microseconds, less than its
-    launch costs the host, so ``time_ms`` there measures the host."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+def device_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn``: ``n`` calls captured in one CUDA
+    graph, the graph replayed ``reps`` times between two CUDA events. The
+    card then launches the kernels itself, so the host's cost of a launch,
+    which at the MBRL shapes exceeds a kernel's run time (``time_ms``
+    measures that), drops out; what remains is the kernels' own time and
+    the graph's gaps between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(n):
             fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * n)
+
+
+def profiled(run, tries: int = 3) -> tuple:
+    """``run()`` under ``torch.profiler``: its CUDA kernel events and the
+    wall ms of the run. A session can come back without the card's
+    activity; such a session is run again, up to ``tries`` in all, and
+    one that never shows a kernel raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("profiler recorded no device time")
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels and sum(e.time_range.elapsed_us() for e in kernels) > 0:
+            return kernels, wall_ms
+    raise RuntimeError(f"profiler recorded no device time in {tries} "
+                       "sessions")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -443,31 +480,24 @@ def serve(CONFIG, init_params, ParameterServer, WorldModelServer,
             **stats}
 
 
-def profile_decode(srv, cfg, ticks: int = 3) -> dict:
+def profile_decode(srv, cfg, ticks: int = 3, tries: int = 3) -> dict:
     """Where a full-width decode tick's time goes, after the main path's
     counts are read: ``torch.profiler`` over ``ticks`` steps with every slot
-    busy. Device time is the sum of kernel self times; the busy share is
-    that over the host wall time of the same steps."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    busy. Device time is the sum of kernel times; the busy share is that
+    over the host wall time of the same steps."""
     rng = np.random.default_rng(3)
-    for _ in range(srv.sched.n_slots):
-        srv.submit(rng.integers(0, cfg.vocab_size, 16), max_new=ticks + 3)
+    for _ in range(srv.sched.n_slots):  # busy through every session
+        srv.submit(rng.integers(0, cfg.vocab_size, 16),
+                   max_new=tries * ticks + 3)
     srv.step()  # admit every slot + the first decode
     srv.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for _ in range(ticks):
             srv.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, wall_ms = profiled(run, tries)
     srv.run()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    if not kernels or device_ms <= 0:
-        raise RuntimeError("profiler recorded no device time")
     by_name = {}
     for e in kernels:
         by_name[e.name] = (by_name.get(e.name, 0.0)
@@ -588,23 +618,12 @@ def profile_epoch(learner) -> dict:
     ``torch.profiler`` over one more epoch on the full ring. Device time is
     the sum of kernel times; the busy share is that over the epoch's wall
     time under the profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        learner.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels, wall_ms = profiled(learner.step)
     by_name = {}
     for e in kernels:
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / 1e3)
     device = sum(by_name.values())
-    if not kernels or device <= 0:
-        raise RuntimeError("profiler recorded no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_ms": device,
             "device_busy_share": device / wall_ms, "kernels": len(kernels),
