@@ -17,6 +17,11 @@ Phases, each printing one JSON line:
    Their times are device time per call, from CUDA events around the
    replay of a CUDA graph of many calls, so the host's launch cost drops
    out.
+   ``imag_check``: the same for the fused imagination step ``imag_fused``
+   at the policy improver's shape (B = 64), at B = 4,096, at MB-MPO's K = 1
+   member slice and at edge shapes, with device times by CUDA-graph replay;
+   then first- and second-order gradients through its autograd Function
+   against the plain version's autograd.
 4. ``model_check``: GLM-4-9B at full width, cut to 2 layers; prefill logits
    through the kernel against the same through the plain attention.
 5. ``serve``: ``WorldModelServer`` on the full 40-layer GLM-4-9B with a
@@ -36,11 +41,20 @@ Phases, each printing one JSON line:
 7. ``assigned_predict``: the published ensemble predicts the val ring's
    transitions with sampled members through ``gmm_ragged``, held against
    the all-member forward's row-selected output.
-8. ``kernels``: one entry per kernel, as the port's records expect.
+8. ``policy_improve``: Algorithm 3, a ``PolicyImprovementWorker`` on the
+   ensemble that ``model_learn`` published, at ``AlgoConfig`` defaults (64
+   imagined starts, horizon 50, 5 members) with the policy of
+   ``examples/pr2_arm.py``: ME-TRPO steps, then ME-PPO and MB-MPO steps.
+   Asserts H ``imag_fused`` launches per ME step and 2·K·H per MB-MPO
+   step, one ``improve`` input shape, one policy version per step, finite
+   imagined returns and at least one TRPO step found. Then
+   ``improve_profile``: ``torch.profiler`` over one more ME-TRPO step.
+9. ``kernels``: one entry per kernel, as the port's records expect.
 
 Each kernel's launches are counted from 0 just before the phase that
-drives its path (``serve``, ``model_learn``, ``assigned_predict``) and read
-just after it; comparison launches never count. The line before the last
+drives its path (``serve``, ``model_learn``, ``assigned_predict``,
+``policy_improve``) and read just after it; comparison launches never
+count. The line before the last
 is the card's name and power limit from ``nvidia-smi``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It imports nothing of JAX and nothing
@@ -84,6 +98,13 @@ LEARN_ENV, LEARN_LANES, LEARN_TRAJS, LEARN_EPOCHS = (
 # predict_assigned vs the all-member forward's selected rows, f32: the
 # same three layers summed in another order by two kernels
 ASSIGNED_ATOL = 1e-4
+# imag_fused vs the plain fused step, f32 both (no TF32): six MLP layers
+# summed in another order and CUDA's tanhf/expf against torch's, relative
+# to the outputs' scale; the gradients through the Function likewise
+IMAG_TOL = 1e-4
+# policy improvement: AlgoConfig defaults, the policy of examples/pr2_arm.py
+IMPROVE_STEPS = {"me-trpo": 3, "me-ppo": 2, "mb-mpo": 2}
+POLICY_HIDDEN = 64
 
 
 def emit(obj) -> None:
@@ -384,6 +405,140 @@ def check_gmm(gmm_cuda, gmm_ref) -> dict:
     return rows
 
 
+# name, K, B, obs, act, hidden, policy hidden, group sizes (None: sampled
+# members, as imagination draws them)
+IMAG_CASES = [
+    ("rollout_b64", 5, 64, 23, 7, 256, 64, None),
+    ("rollout_b4096", 5, 4096, 23, 7, 256, 64, None),
+    ("mbmpo_member_k1_b64", 1, 64, 23, 7, 256, 64, None),
+    # test_kernels_interpret.py's edge shapes
+    ("edge_empty_groups", 4, 64, 3, 1, 96, 48, (10, 0, 54, 0)),
+    ("edge_one_group_owns_all", 3, 48, 3, 1, 96, 48, (0, 48, 0)),
+    ("edge_straddling_b37", 5, 37, 4, 2, 24, 12, (5, 8, 0, 20, 4)),
+    ("edge_k1_b20", 1, 20, 5, 2, 32, 16, (20,)),
+    ("edge_wide_300", 3, 70, 6, 3, 300, 20, None),
+]
+IMAG_MAIN = "rollout_b64"
+
+
+def imag_inputs(gen, K, B, obs, act, hid, phid, sizes):
+    """Members, normaliser, policy, rows, noise and member ids on the card,
+    at the scales a trained model and policy give them."""
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    din = obs + act
+    dims = [din, hid, hid, obs]
+    members = {"w": [rnd(K, a, b, scale=2 * a ** -0.5)
+                     for a, b in zip(dims[:-1], dims[1:])],
+               "b": [rnd(K, b, scale=0.2) for b in dims[1:]]}
+    norm = {"mu_in": rnd(din, scale=0.2), "sig_in": rnd(din).abs() + 0.5,
+            "mu_out": rnd(obs, scale=0.1), "sig_out": rnd(obs).abs() + 0.5}
+    pol = {"w": [rnd(obs, phid, scale=obs ** -0.5),
+                 rnd(phid, act, scale=phid ** -0.5)],
+           "b": [rnd(phid, scale=0.2), rnd(act, scale=0.2)],
+           "log_std": torch.full((act,), -0.5, device="cuda")}
+    if sizes is None:
+        idx = torch.randint(0, K, (B,), generator=gen, device="cuda")
+    else:
+        ids = torch.repeat_interleave(torch.arange(K, device="cuda"),
+                                      torch.tensor(sizes, device="cuda"))
+        idx = ids[torch.randperm(B, generator=gen, device="cuda")]
+    return members, norm, pol, rnd(B, obs, scale=2), rnd(B, act), idx
+
+
+def imag_bound_ms(members, norm, pol, s, eps, idx) -> tuple:
+    """Least time for the card: the bytes that this run's rows need (rows,
+    noise, offsets and outputs; the policy and the normaliser; the weights
+    of the members that own a row) over HBM bandwidth, against the f32 FMAs
+    of every row's policy head and its one member's MLP."""
+    K = members["w"][0].shape[0]
+    used = int((torch.bincount(idx, minlength=K) > 0).sum())
+    per_member = sum(t[0].numel() for t in members["w"] + members["b"])
+    small = sum(t.numel() for t in pol["w"] + pol["b"]
+                + [pol["log_std"]] + list(norm.values()))
+    B, obs, act = s.shape[0], s.shape[1], eps.shape[1]
+    rows = B * (obs + act) + (K + 1) + B * (obs + 2 * act)
+    nbytes = 4 * (rows + small + used * per_member)
+    macs = sum(w.shape[0] * w.shape[1] for w in pol["w"]) + sum(
+        w.shape[1] * w.shape[2] for w in members["w"])
+    return gmm_bound_ms(2.0 * B * macs, nbytes)
+
+
+def check_imag(imag_cuda, imag_ops, imag_ref) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    for name, K, B, obs, act, hid, phid, sizes in IMAG_CASES:
+        members, norm, pol, s, eps, idx = imag_inputs(gen, K, B, obs, act,
+                                                      hid, phid, sizes)
+        order, offsets = imag_ops.sort_plan(idx, K)
+        ss, es = s[order].contiguous(), eps[order].contiguous()
+
+        def kernel():
+            return imag_cuda.fused_step_sorted(members, norm, pol, ss, es,
+                                               offsets)
+
+        def plain():
+            return imag_ref.fused_step(members, norm, pol, s, eps, idx)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = [v[order] for v in plain()]
+        errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        tol = IMAG_TOL * max(1.0, max(w.abs().max().item() for w in want))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        if not (finite and max(errs) <= tol):
+            raise RuntimeError(f"imag_fused {name}: max abs errs {errs} > "
+                               f"{tol} (finite {finite})")
+        bound, bound_by = imag_bound_ms(members, norm, pol, s, eps, idx)
+        rows[name] = {
+            "shape": [K, B, obs, act, hid, phid],
+            "group_sizes": torch.bincount(idx, minlength=K).tolist(),
+            "max_abs_err": max(errs), "max_abs_err_s2_a_pre": errs,
+            "tol": tol, "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "library_ms": None,  # no PyTorch call computes this function
+            "wall_ms": time_ms(kernel), "bound_ms": bound,
+            "bound_by": bound_by}
+        emit({"phase": "imag_check", "kernel": "imag_fused", "case": name,
+              **rows[name]})
+    return rows
+
+
+def check_imag_grads(imag_ops) -> dict:
+    """The meta-gradient MB-MPO takes, at the rollout shape: a loss at a
+    policy adapted by one inner gradient step, differentiated w.r.t. the
+    policy, through the kernel's Function and through the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    name, K, B, obs, act, hid, phid, sizes = IMAG_CASES[0]
+    members, norm, pol, s, eps, idx = imag_inputs(gen, K, B, obs, act, hid,
+                                                  phid, sizes)
+    grads = {}
+    for impl in ("cuda", "ref"):
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in pol["w"] + pol["b"] + [pol["log_std"]]]
+        p = {"w": leaves[:2], "b": leaves[2:4], "log_std": leaves[4]}
+        s2, a, pre = imag_ops.fused_step(members, norm, p, s, eps, idx,
+                                         impl=impl)
+        inner = torch.autograd.grad((s2 ** 2).mean() + (a * pre).mean(),
+                                    leaves, create_graph=True)
+        q = [x - 0.05 * g for x, g in zip(leaves, inner)]
+        s2, a, pre = imag_ops.fused_step(
+            members, norm, {"w": q[:2], "b": q[2:4], "log_std": q[4]}, s,
+            eps.flip(0), idx.flip(0), impl=impl)
+        outer = torch.autograd.grad((s2 ** 2).mean() + (pre ** 2).mean(),
+                                    leaves)
+        grads[impl] = (inner, outer)
+    out = {}
+    for order, key in ((0, "first_order"), (1, "second_order")):
+        err = max((g - w).abs().max().item() for g, w in
+                  zip(grads["cuda"][order], grads["ref"][order]))
+        tol = IMAG_TOL * max(1.0, max(w.abs().max().item()
+                                      for w in grads["ref"][order]))
+        if not err <= tol:
+            raise RuntimeError(f"imag_fused {key} gradient: max abs err "
+                               f"{err} > {tol}")
+        out[key] = {"max_abs_err": err, "tol": tol}
+    return {"case": name, **out}
+
+
 # ---------------------------------------------------------------- phase 4
 
 def check_model(CONFIG, init_params, api) -> dict:
@@ -673,6 +828,89 @@ def assigned_predict(learner, model_server, gmm_ops) -> dict:
                 lambda: DYN.predict_assigned(params, obs, act, idx))}
 
 
+# ---------------------------------------------------------------- phase 8
+
+def policy_improve(model_server, imag_ops) -> tuple:
+    """Algorithm 3 through the port's entry points on the card: a policy
+    improver per algorithm on the published ensemble. Returns the ME-TRPO
+    worker and the phase's record."""
+    from repro_torch.core.servers import ParameterServer
+    from repro_torch.core.workers import PolicyImprovementWorker
+    from repro_torch.envs import make_env
+    from repro_torch.mbrl import algos as A
+    from repro_torch.mbrl import policy as PI
+
+    env = make_env(LEARN_ENV)
+    pol_cfg = PI.PolicyConfig(env.obs_dim, env.act_dim, hidden=POLICY_HIDDEN)
+    record, workers = {}, {}
+    imag_ops.launches = 0
+    for seed, (name, n_steps) in enumerate(IMPROVE_STEPS.items()):
+        cfg = A.AlgoConfig(algo=name)
+        algo = A.make_algo(cfg, pol_cfg, env.reward, env.reset_batch)
+        policy_server = ParameterServer()
+        worker = PolicyImprovementWorker(algo, policy_server, model_server,
+                                         seed=10 + seed)
+        want = cfg.imagine_horizon * (
+            2 * cfg.n_models if name == "mb-mpo" else 1)
+        steps = []
+        for _ in range(n_steps):
+            l0, v0 = imag_ops.launches, policy_server.version
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            did = worker.step()
+            torch.cuda.synchronize()
+            info = {k: (v.tolist() if v.dim() else v.item())
+                    for k, v in worker.last_info.items()}
+            steps.append({"did": did, "ms": (time.perf_counter() - t0) * 1e3,
+                          "launches": imag_ops.launches - l0,
+                          "version_step": policy_server.version - v0,
+                          **info})
+        returns = [st["imagined_return"] for st in steps]
+        checks = {
+            "every step ran": all(st["did"] for st in steps),
+            f"{want} imag_fused launches per step":
+                all(st["launches"] == want for st in steps),
+            "one improve shape": worker.compile_count() == 1,
+            "one policy version per step":
+                all(st["version_step"] == 1 for st in steps),
+            "finite imagined returns": bool(np.isfinite(returns).all()),
+            "policy finite": all(bool(torch.isfinite(t).all()) for t in
+                                 policy_server.pull()[0]["w"]),
+        }
+        if name == "me-trpo":
+            checks["a TRPO step found"] = any(st["found"] for st in steps)
+        failed = [c for c, ok in checks.items() if not ok]
+        if failed:
+            raise RuntimeError(f"policy_improve {name} failed: {failed}; "
+                               f"steps {steps}")
+        record[name] = {"config": dataclasses.asdict(cfg),
+                        "launches_per_step": want, "steps": steps,
+                        "step_ms": [st["ms"] for st in steps],
+                        "policy_version": policy_server.version,
+                        "model_version": model_server.version}
+        workers[name] = worker
+    return workers["me-trpo"], {
+        "env": LEARN_ENV, "policy_hidden": POLICY_HIDDEN,
+        "imag_fused_launches": imag_ops.launches, **record}
+
+
+def profile_improve(worker) -> dict:
+    """Where an ME-TRPO improve step's time goes, after the main path's
+    counts are read: ``torch.profiler`` over one more step."""
+    kernels, wall_ms = profiled(worker.step)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+    device = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"algo": "me-trpo", "wall_ms": wall_ms, "device_ms": device,
+            "device_busy_share": device / wall_ms, "kernels": len(kernels),
+            "imag_fused_ms": sum(ms for n, ms in by_name.items()
+                                 if "imag_fused" in n),
+            "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -688,6 +926,9 @@ def main() -> int:
     from repro_torch.kernels.gmm import cuda as gmm_cuda
     from repro_torch.kernels.gmm import ops as gmm_ops
     from repro_torch.kernels.gmm import ref as gmm_ref
+    from repro_torch.kernels.imag import cuda as imag_cuda
+    from repro_torch.kernels.imag import ops as imag_ops
+    from repro_torch.kernels.imag import ref as imag_ref
     from repro_torch.models import api
     from repro_torch.models.lm import init_params
     from repro_torch.serve import WorldModelServer
@@ -700,7 +941,7 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    sources = [fa_cuda.SOURCE, gmm_cuda.SOURCE]
+    sources = [fa_cuda.SOURCE, gmm_cuda.SOURCE, imag_cuda.SOURCE]
     t0 = time.perf_counter()
     built = build.build(sources)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -710,6 +951,8 @@ def main() -> int:
 
     rows = check_attention(fa_ops, fa_ref)
     gmm_rows = check_gmm(gmm_cuda, gmm_ref)
+    imag_rows = check_imag(imag_cuda, imag_ops, imag_ref)
+    emit({"phase": "imag_grad_check", **check_imag_grads(imag_ops)})
     emit({"phase": "model_check", **check_model(CONFIG, init_params, api)})
     srv, served = serve(CONFIG, init_params, ParameterServer,
                         WorldModelServer, fa_ops)
@@ -723,10 +966,14 @@ def main() -> int:
     emit({"phase": "epoch_profile", **profile_epoch(learner)})
     assigned = assigned_predict(learner, model_server, gmm_ops)
     emit({"phase": "assigned_predict", **assigned})
+    worker, improved = policy_improve(model_server, imag_ops)
+    emit({"phase": "policy_improve", **improved})
+    emit({"phase": "improve_profile", **profile_improve(worker)})
 
     main_row = rows[MAIN_PATH_CASE]
     eq, rg = (gmm_rows["equal"][GMM_EQUAL_MAIN],
               gmm_rows["ragged"][GMM_RAGGED_MAIN])
+    im = imag_rows[IMAG_MAIN]
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": str(fa_cuda.SOURCE.relative_to(ROOT)),
@@ -755,7 +1002,15 @@ def main() -> int:
                            for r in gmm_rows["ragged"].values()),
         "ms": rg["ms"], "plain_ms": rg["plain_ms"],
         "bound_ms": rg["bound_ms"], "bound_by": rg["bound_by"],
-        "library_ms": rg["library_ms"], "shape": GMM_RAGGED_MAIN}]})
+        "library_ms": rg["library_ms"], "shape": GMM_RAGGED_MAIN}, {
+        "name": "imag_fused", "route": "cuda",
+        "source": str(imag_cuda.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/imag/pallas.py:97",
+        "launches": improved["imag_fused_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in imag_rows.values()),
+        "ms": im["ms"], "plain_ms": im["plain_ms"],
+        "bound_ms": im["bound_ms"], "bound_by": im["bound_by"],
+        "library_ms": im["library_ms"], "shape": IMAG_MAIN}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

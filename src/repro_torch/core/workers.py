@@ -1,26 +1,26 @@
-"""The data-collection and model-learning workers of Figure 1a (Alg. 1 and
-2): the port of that half of ``repro/core/workers.py``.
+"""The three workers of Figure 1a (Alg. 1, 2 and 3): the port of the
+in-process half of ``repro/core/workers.py``.
 
 Each worker is a pull -> step -> push loop with the minimal unit of work
-(one batch of rollouts / one model epoch), run on one device. Parameter
-pulls are version-gated: an unchanged version costs one lock + integer
-compare against a device-resident cache. Randomness comes from explicit
-``torch.Generator``s on the worker's device: one per collector
-(``collector_generator``), one per model learner, and the learner's
-minibatch index grid can be injected (``index_source``) to replay another
-run's draws.
+(one batch of rollouts / one model epoch / one policy-improvement step),
+run on one device. Parameter pulls are version-gated: an unchanged version
+costs one lock + integer compare against a device-resident cache.
+Randomness comes from explicit ``torch.Generator``s on the worker's device:
+one per collector (``collector_generator``), one per model learner, one per
+policy improver; the learner's minibatch index grid (``index_source``) and
+the improver's imagination draws (``draw_source``) can be injected to
+replay another run's draws.
 
-The model learner keeps the reference's no-retrace invariant in eager
-form: ``train_epoch`` and ``val_loss`` see one input shape from the first
-epoch to a full ring (``compile_count``).
+The model learner and the policy improver keep the reference's no-retrace
+invariant in eager form: ``train_epoch``, ``val_loss`` and ``improve`` each
+see one input shape in steady state (``compile_count``).
 
-Not ported yet: ``PolicyImprovementWorker``, ``ProcSpec`` and the procs
-entry points.
+Not ported yet: ``ProcSpec`` and the procs entry points.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -34,6 +34,8 @@ from repro_torch.utils.tree import tree_to
 
 # index_source(nb, bs, size) -> (nb, bs) integer tensor of ring rows
 IndexSource = Callable[[int, int, int], torch.Tensor]
+# draw_source(model_params) -> the draws of one ``algo.improve`` call
+DrawSource = Callable[[Any], Any]
 
 
 @dataclasses.dataclass
@@ -256,3 +258,56 @@ class ModelLearningWorker:
         self.epochs += 1
         self.model_server.push(self.params)             # Push
         return vloss
+
+
+class PolicyImprovementWorker:
+    """Algorithm 3. Pull φ -> ONE policy-improvement step (TRPO/PPO/MB-MPO
+    on imagined rollouts) -> push θ.
+
+    Keeps a device-resident model cache; an unchanged model version costs
+    one lock + integer compare. ``policy`` replaces the random initial
+    policy (the parity tests start both packages from one converted tree);
+    the initial policy is pushed unless ``push_init=False``. Each step's
+    imagination draws come from ``draw_source(model_params)`` when given
+    (a test replays the reference's key splits through it), else from this
+    worker's generator."""
+
+    def __init__(self, algo, policy_server: ParameterServer,
+                 model_server: ParameterServer, seed: int, *, policy=None,
+                 push_init: bool = True,
+                 draw_source: Optional[DrawSource] = None, device=None):
+        self.algo = algo
+        self.policy_server = policy_server
+        self.model_server = model_server
+        self.device = resolve_device(device)
+        self._gen = torch.Generator(self.device).manual_seed(int(seed))
+        self.draw_source = draw_source
+        self.state = algo.init(
+            self._gen, policy=None if policy is None
+            else tree_to(policy, self.device))
+        if push_init:
+            self.policy_server.push(self.state["policy"])
+        self._model_cache = None
+        self._model_ver = 0
+        self.steps = 0
+        self.last_info = None
+
+    def compile_count(self) -> int:
+        """Distinct input shapes of the algo's ``improve`` (1 in steady
+        state): the reference's compile count of its one ``_improve`` jit."""
+        return self.algo.shape_count()
+
+    def step(self) -> bool:
+        fresh, self._model_ver = self.model_server.pull_if_newer(
+            self._model_ver)                            # Pull (gated)
+        if fresh is not None:
+            self._model_cache = tree_to(fresh, self.device)
+        if self._model_cache is None:
+            return False
+        draws = (None if self.draw_source is None
+                 else self.draw_source(self._model_cache))
+        self.state, self.last_info = self.algo.improve(
+            self.state, self._model_cache, draws, generator=self._gen)
+        self.steps += 1
+        self.policy_server.push(self.state["policy"])   # Push
+        return True

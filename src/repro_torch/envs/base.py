@@ -60,6 +60,12 @@ class Env:
         draw = torch.rand if self.reset_dist == "uniform" else torch.randn
         return draw(shape, generator=generator, device=generator.device)
 
+    def reset_batch(self, generator: torch.Generator, n: int
+                    ) -> torch.Tensor:
+        """``n`` start states from ``generator``: the imagination algos'
+        ``init_state_fn``, as the reference's ``reset_batch(key, n)``."""
+        return self.reset_from(self.reset_draws(n, generator))
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def rollout_batch(self, policy_fn: PolicyFn, policy_params, n: int, *,

@@ -10,12 +10,14 @@ normalisation; sampling uses a uniform prior over ensemble members
 Training evaluates every member on every row (``ensemble_mlp``: the
 ``gmm_equal`` kernel on the card, forward and backward). ``predict_assigned``
 evaluates one member per row (``ensemble_mlp_select``: the ``gmm_ragged``
-kernel). Draws are injected: member indices by ``sample_members`` from an
-explicit generator, and the ring trainer's minibatch index grid by the
-caller (``ModelLearningWorker`` draws it, or replays one).
+kernel). Imagination runs one fused step per horizon step (``step_fused``:
+the ``imag_fused`` kernel on the card, policy head and assigned member in
+one launch). Draws are injected: member indices by ``sample_members`` and
+policy noise by ``hoisted_noise`` from an explicit generator, or passed in;
+the ring trainer's minibatch index grid by the caller
+(``ModelLearningWorker`` draws it, or replays one).
 
-Not ported yet: ``step_fused``, ``horizon_plan``, ``hoisted_noise``,
-``imagine_rollout`` (imagination) and the legacy ``make_model_trainer``.
+Not ported: the legacy dynamic-shape ``make_model_trainer``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.gmm import ops as gmm_ops
+from repro_torch.kernels.imag import ops as imag_ops
+from repro_torch.mbrl import policy as PI
 from repro_torch.optim.optimizers import adam, apply_updates
 from repro_torch.utils.shape_stats import ShapeCounted
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
@@ -265,3 +269,85 @@ def make_ring_trainer(cfg: EnsembleConfig, capacity: int,
 
     return (opt, ShapeCounted(_train_epoch), ShapeCounted(_val_loss),
             ShapeCounted(_update_norm))
+
+
+# ------------------------------------------------------------ imagination
+def step_fused(params, policy_params, s, eps, member_idx, *, impl=None,
+               plan=None):
+    """One FUSED imagination step: policy head + reparameterised action +
+    assigned-member dynamics forward as one ``kernels/imag`` dispatch (the
+    kernel on the card, the plain version on the CPU).
+
+    s: (B, obs); eps: (B, act) standard normal (pre-drawn for the whole
+    horizon); member_idx: (B,) int. ``plan``: this step's slice of
+    ``horizon_plan`` (kernel route). Returns ``(s2, a, pre)``."""
+    return imag_ops.fused_step(params["members"], params["norm"],
+                               policy_params, s, eps, member_idx, impl=impl,
+                               plan=plan)
+
+
+def horizon_plan(params, member_idx, *, impl=None):
+    """Sort plans for a whole horizon of member assignments ((H, B) int),
+    computed once before the rollout loop, or None when the step will not
+    launch the kernel (the plain version is row-order-blind)."""
+    if not imag_ops.uses_kernel(member_idx, impl):
+        return None
+    return imag_ops.sort_plan(member_idx, n_members(params))
+
+
+def hoisted_noise(horizon: int, batch: int, act_dim: int,
+                  generator: torch.Generator):
+    """The whole horizon's policy noise, (H, B, act) standard normal, in one
+    draw on the generator's device."""
+    return torch.randn((int(horizon), int(batch), int(act_dim)),
+                       generator=generator, device=generator.device)
+
+
+def rollout_draws(params, horizon: int, batch: int, act_dim: int,
+                  generator: torch.Generator):
+    """A rollout's draws from ``generator``: member assignments (H, B), then
+    policy noise (H, B, act)."""
+    return (sample_members(params, (horizon, batch), generator),
+            hoisted_noise(horizon, batch, act_dim, generator))
+
+
+def imagine_rollout(params, policy_fn, policy_params, s0, horizon: int,
+                    reward_fn, *, fused=None, members=None, eps=None,
+                    generator: Optional[torch.Generator] = None):
+    """Dyna imagination: roll the ensemble from s0 under the policy.
+
+    s0: (B, obs). Returns ``{"obs", "act", "rew"}`` of (H, B, ·). The whole
+    horizon's member assignments ``members`` (H, B) and policy noise ``eps``
+    (H, B, act) are drawn up front (from ``generator``, members first, or
+    passed in), and each step is ONE ``step_fused`` dispatch.
+
+    ``fused=None`` takes the fused path exactly when ``policy_fn`` is
+    ``PI.sample_action`` (the only policy the fused step reproduces); any
+    other ``policy_fn(params, s, eps)``, or ``fused=False``, takes the legacy
+    per-step path (``policy_fn`` + ``predict_assigned``)."""
+    if fused is None:
+        fused = policy_fn is PI.sample_action
+    B = s0.shape[0]
+    act_dim = policy_params["w"][-1].shape[1]
+    if members is None or eps is None:
+        if generator is None:
+            raise ValueError("imagine_rollout needs members and eps, or a "
+                             "torch.Generator to draw them")
+        members, eps = rollout_draws(params, horizon, B, act_dim, generator)
+    plan = horizon_plan(params, members) if fused else None
+    s = s0
+    obs, act, rew = [], [], []
+    for h in range(int(horizon)):
+        if fused:
+            step_plan = None if plan is None else (plan[0][h], plan[1][h])
+            s2, a, _pre = step_fused(params, policy_params, s, eps[h],
+                                     members[h], plan=step_plan)
+        else:
+            a = policy_fn(policy_params, s, eps[h])
+            s2 = predict_assigned(params, s, a, members[h])
+        obs.append(s)
+        act.append(a)
+        rew.append(reward_fn(s, a, s2))
+        s = s2
+    return {"obs": torch.stack(obs), "act": torch.stack(act),
+            "rew": torch.stack(rew)}

@@ -20,6 +20,10 @@ SLICE2 = ["utils/tree.py", "optim/optimizers.py", "envs/base.py",
           "kernels/gmm/ref.py", "kernels/gmm/cuda.py", "kernels/gmm/ops.py",
           "mbrl/dynamics.py", "mbrl/early_stop.py", "core/servers.py",
           "core/workers.py", "testing/parity.py"]
+# the modules the imagine -> improve slice adds (it extends
+# mbrl/dynamics.py and core/workers.py, listed above)
+SLICE3 = ["kernels/imag/ref.py", "kernels/imag/cuda.py", "kernels/imag/ops.py",
+          "mbrl/trpo.py", "mbrl/ppo.py", "mbrl/algos.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -38,7 +42,7 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("module", SLICE2)
+@pytest.mark.parametrize("module", SLICE2 + SLICE3)
 def test_slice_module_is_scanned(module):
     assert PORT / module in FILES
 

@@ -15,6 +15,9 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gmm import cuda as gmm_cuda
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.gmm import ref as gmm_ref
+from repro_torch.kernels.imag import cuda as imag_cuda
+from repro_torch.kernels.imag import ops as imag_ops
+from repro_torch.kernels.imag import ref as imag_ref
 
 # kernel vs plain version, both rounding one f32 result to the output dtype:
 # f32 outputs differ only by the order of f32 sums; bf16 outputs by up to
@@ -190,3 +193,107 @@ def test_gmm_kernels_refuse_what_they_cannot_run(card):
         gmm_cuda.gmm_ragged(a[0], torch.zeros((3, 4, 5), device=card),
                             torch.tensor([0, 8], dtype=torch.int32,
                                          device=card))
+
+
+# imag_fused vs the plain fused step, f32 both (no TF32): three MLP layers
+# summed in another order and CUDA's tanhf/expf against torch's, relative to
+# the outputs' scale
+IMAG_TOL = 1e-4
+
+IMAG_CASES = [
+    # K, B, obs, act, hidden, policy hidden, group sizes (None: sampled)
+    (5, 64, 23, 7, 256, 64, None),        # the trainer's imagination step
+    (5, 4096, 23, 7, 256, 64, None),
+    (1, 64, 23, 7, 256, 64, None),        # MB-MPO's K=1 member slice
+    (4, 64, 3, 1, 96, 48, (10, 0, 54, 0)),       # empty groups
+    (3, 48, 3, 1, 96, 48, (0, 48, 0)),           # one group owns the batch
+    (5, 37, 4, 2, 24, 12, (5, 8, 0, 20, 4)),     # straddling, B not a tile
+    (1, 20, 5, 2, 32, 16, (20,)),                # K=1
+    (3, 70, 6, 3, 300, 20, None),         # a layer wider than a column pass
+]
+
+
+def _imag_inputs(rng, card, K, B, obs, act, hid, phid, sizes):
+    din = obs + act
+    dims = [din, hid, hid, obs]
+    members = {"w": [_randn(rng, (K, a, b), card) * a ** -0.5 * 2
+                     for a, b in zip(dims[:-1], dims[1:])],
+               "b": [_randn(rng, (K, b), card) * 0.2 for b in dims[1:]]}
+    norm = {"mu_in": _randn(rng, (din,), card) * 0.2,
+            "sig_in": _randn(rng, (din,), card).abs() + 0.5,
+            "mu_out": _randn(rng, (obs,), card) * 0.1,
+            "sig_out": _randn(rng, (obs,), card).abs() + 0.5}
+    pol = {"w": [_randn(rng, (obs, phid), card),
+                 _randn(rng, (phid, act), card)],
+           "b": [_randn(rng, (phid,), card) * 0.2,
+                 _randn(rng, (act,), card) * 0.2],
+           "log_std": torch.full((act,), -0.5, device=card)}
+    s, eps = _randn(rng, (B, obs), card) * 2, _randn(rng, (B, act), card) * 2
+    if sizes is None:
+        idx = rng.integers(0, K, B)
+    else:
+        idx = rng.permutation(np.repeat(np.arange(K), sizes))
+    return members, norm, pol, s, eps, torch.from_numpy(idx).to(card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", IMAG_CASES)
+def test_imag_kernel_matches_ref(card, case):
+    rng = np.random.default_rng(5)
+    args = _imag_inputs(rng, card, *case)
+    before = imag_ops.launches
+    got = imag_ops.fused_step(*args)
+    torch.cuda.synchronize()
+    assert imag_ops.launches == before + 1
+    for g, w in zip(got, imag_ops.fused_step(*args, impl="ref")):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        scale = max(1.0, w.abs().max().item())
+        err = (g - w).abs().max().item()
+        assert err <= IMAG_TOL * scale, (err, scale)
+
+
+@pytest.mark.gpu
+def test_imag_function_first_and_second_order_grads_match_ref(card):
+    """MB-MPO's meta-gradient through the kernel's Function: the gradient
+    of a loss at a policy adapted by one inner gradient step, against the
+    same through the plain version's autograd."""
+    rng = np.random.default_rng(6)
+    members, norm, pol, s, eps, idx = _imag_inputs(rng, card, 5, 64, 23, 7,
+                                                   256, 64, None)
+    grads = {}
+    for impl in ("cuda", "ref"):
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in pol["w"] + pol["b"] + [pol["log_std"]]]
+        p = {"w": leaves[:2], "b": leaves[2:4], "log_std": leaves[4]}
+        s2, a, pre = imag_ops.fused_step(members, norm, p, s, eps, idx,
+                                         impl=impl)
+        inner = torch.autograd.grad((s2 ** 2).mean() + (a * pre).mean(),
+                                    leaves, create_graph=True)
+        adapted = [x - 0.05 * g for x, g in zip(leaves, inner)]
+        q = {"w": adapted[:2], "b": adapted[2:4], "log_std": adapted[4]}
+        s2, a, pre = imag_ops.fused_step(members, norm, q, s, eps.flip(0),
+                                         idx.flip(0), impl=impl)
+        grads[impl] = (inner, torch.autograd.grad(
+            (s2 ** 2).mean() + (pre ** 2).mean(), leaves))
+    for order in (0, 1):
+        for got, want in zip(grads["cuda"][order], grads["ref"][order]):
+            scale = max(1.0, want.abs().max().item())
+            err = (got - want).abs().max().item()
+            assert err <= IMAG_TOL * scale, (order, err, scale)
+
+
+@pytest.mark.gpu
+def test_imag_kernel_refuses_what_it_cannot_run(card):
+    rng = np.random.default_rng(7)
+    members, norm, pol, s, eps, idx = _imag_inputs(rng, card, 3, 16, 3, 1, 8,
+                                                   8, None)
+    order, offs = imag_ops.sort_plan(idx, 3)
+    with pytest.raises(ValueError, match="float32"):
+        imag_cuda.fused_step_sorted(members, norm, pol, s.double(), eps, offs)
+    with pytest.raises(ValueError, match="contiguous"):
+        imag_cuda.fused_step_sorted(members, norm, pol, s.t().contiguous().t(),
+                                    eps, offs)
+    with pytest.raises(ValueError, match="int32"):
+        imag_cuda.fused_step_sorted(members, norm, pol, s, eps, offs.long())
+    with pytest.raises(ValueError, match="fit"):
+        imag_cuda.fused_step_sorted(members, norm, pol, s[:, :2], eps, offs)
