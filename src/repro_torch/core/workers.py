@@ -267,14 +267,13 @@ class PolicyImprovementWorker:
     Keeps a device-resident model cache; an unchanged model version costs
     one lock + integer compare. ``policy`` replaces the random initial
     policy (the parity tests start both packages from one converted tree);
-    the initial policy is pushed unless ``push_init=False``. Each step's
+    the initial policy is pushed at construction. Each step's
     imagination draws come from ``draw_source(model_params)`` when given
     (a test replays the reference's key splits through it), else from this
     worker's generator."""
 
     def __init__(self, algo, policy_server: ParameterServer,
                  model_server: ParameterServer, seed: int, *, policy=None,
-                 push_init: bool = True,
                  draw_source: Optional[DrawSource] = None, device=None):
         self.algo = algo
         self.policy_server = policy_server
@@ -285,8 +284,7 @@ class PolicyImprovementWorker:
         self.state = algo.init(
             self._gen, policy=None if policy is None
             else tree_to(policy, self.device))
-        if push_init:
-            self.policy_server.push(self.state["policy"])
+        self.policy_server.push(self.state["policy"])
         self._model_cache = None
         self._model_ver = 0
         self.steps = 0
