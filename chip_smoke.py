@@ -405,23 +405,26 @@ def check_gmm(gmm_cuda, gmm_ref) -> dict:
     return rows
 
 
-# name, K, B, obs, act, hidden, policy hidden, group sizes (None: sampled
-# members, as imagination draws them)
+# name, K, B, obs, act, hidden, policy hidden, policy depth, group sizes
+# (None: sampled members, as imagination draws them). The first three are
+# the main path's: EnsembleConfig's defaults and examples/pr2_arm.py's
+# policy at PolicyConfig's default depth, 23 -> 64 -> 64 -> 7.
 IMAG_CASES = [
-    ("rollout_b64", 5, 64, 23, 7, 256, 64, None),
-    ("rollout_b4096", 5, 4096, 23, 7, 256, 64, None),
-    ("mbmpo_member_k1_b64", 1, 64, 23, 7, 256, 64, None),
-    # test_kernels_interpret.py's edge shapes
-    ("edge_empty_groups", 4, 64, 3, 1, 96, 48, (10, 0, 54, 0)),
-    ("edge_one_group_owns_all", 3, 48, 3, 1, 96, 48, (0, 48, 0)),
-    ("edge_straddling_b37", 5, 37, 4, 2, 24, 12, (5, 8, 0, 20, 4)),
-    ("edge_k1_b20", 1, 20, 5, 2, 32, 16, (20,)),
-    ("edge_wide_300", 3, 70, 6, 3, 300, 20, None),
+    ("rollout_b64", 5, 64, 23, 7, 256, POLICY_HIDDEN, 2, None),
+    ("rollout_b4096", 5, 4096, 23, 7, 256, POLICY_HIDDEN, 2, None),
+    ("mbmpo_member_k1_b64", 1, 64, 23, 7, 256, POLICY_HIDDEN, 2, None),
+    # test_kernels_interpret.py's edge shapes, with its one-hidden-layer
+    # policy
+    ("edge_empty_groups", 4, 64, 3, 1, 96, 48, 1, (10, 0, 54, 0)),
+    ("edge_one_group_owns_all", 3, 48, 3, 1, 96, 48, 1, (0, 48, 0)),
+    ("edge_straddling_b37", 5, 37, 4, 2, 24, 12, 1, (5, 8, 0, 20, 4)),
+    ("edge_k1_b20", 1, 20, 5, 2, 32, 16, 1, (20,)),
+    ("edge_wide_300", 3, 70, 6, 3, 300, 20, 1, None),
 ]
 IMAG_MAIN = "rollout_b64"
 
 
-def imag_inputs(gen, K, B, obs, act, hid, phid, sizes):
+def imag_inputs(gen, K, B, obs, act, hid, phid, pdepth, sizes):
     """Members, normaliser, policy, rows, noise and member ids on the card,
     at the scales a trained model and policy give them."""
     def rnd(*shape, scale=1.0):
@@ -433,9 +436,10 @@ def imag_inputs(gen, K, B, obs, act, hid, phid, sizes):
                "b": [rnd(K, b, scale=0.2) for b in dims[1:]]}
     norm = {"mu_in": rnd(din, scale=0.2), "sig_in": rnd(din).abs() + 0.5,
             "mu_out": rnd(obs, scale=0.1), "sig_out": rnd(obs).abs() + 0.5}
-    pol = {"w": [rnd(obs, phid, scale=obs ** -0.5),
-                 rnd(phid, act, scale=phid ** -0.5)],
-           "b": [rnd(phid, scale=0.2), rnd(act, scale=0.2)],
+    pdims = [obs] + [phid] * pdepth + [act]
+    pol = {"w": [rnd(a, b, scale=a ** -0.5)
+                 for a, b in zip(pdims[:-1], pdims[1:])],
+           "b": [rnd(b, scale=0.2) for b in pdims[1:]],
            "log_std": torch.full((act,), -0.5, device="cuda")}
     if sizes is None:
         idx = torch.randint(0, K, (B,), generator=gen, device="cuda")
@@ -467,9 +471,9 @@ def imag_bound_ms(members, norm, pol, s, eps, idx) -> tuple:
 def check_imag(imag_cuda, imag_ops, imag_ref) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = {}
-    for name, K, B, obs, act, hid, phid, sizes in IMAG_CASES:
-        members, norm, pol, s, eps, idx = imag_inputs(gen, K, B, obs, act,
-                                                      hid, phid, sizes)
+    for name, *case in IMAG_CASES:
+        members, norm, pol, s, eps, idx = imag_inputs(gen, *case)
+        K, B, obs, act, hid, phid, pdepth, sizes = case
         order, offsets = imag_ops.sort_plan(idx, K)
         ss, es = s[order].contiguous(), eps[order].contiguous()
 
@@ -490,7 +494,7 @@ def check_imag(imag_cuda, imag_ops, imag_ref) -> dict:
                                f"{tol} (finite {finite})")
         bound, bound_by = imag_bound_ms(members, norm, pol, s, eps, idx)
         rows[name] = {
-            "shape": [K, B, obs, act, hid, phid],
+            "shape": [K, B, obs, act, hid, phid, pdepth],
             "group_sizes": torch.bincount(idx, minlength=K).tolist(),
             "max_abs_err": max(errs), "max_abs_err_s2_a_pre": errs,
             "tol": tol, "ms": device_ms(kernel), "plain_ms": device_ms(plain),
@@ -507,22 +511,23 @@ def check_imag_grads(imag_ops) -> dict:
     policy adapted by one inner gradient step, differentiated w.r.t. the
     policy, through the kernel's Function and through the plain version."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    name, K, B, obs, act, hid, phid, sizes = IMAG_CASES[0]
-    members, norm, pol, s, eps, idx = imag_inputs(gen, K, B, obs, act, hid,
-                                                  phid, sizes)
+    name, *case = IMAG_CASES[0]
+    members, norm, pol, s, eps, idx = imag_inputs(gen, *case)
+    n = len(pol["w"])
+
+    def tree(leaves):
+        return {"w": leaves[:n], "b": leaves[n:2 * n], "log_std": leaves[-1]}
     grads = {}
     for impl in ("cuda", "ref"):
         leaves = [x.detach().clone().requires_grad_(True)
                   for x in pol["w"] + pol["b"] + [pol["log_std"]]]
-        p = {"w": leaves[:2], "b": leaves[2:4], "log_std": leaves[4]}
-        s2, a, pre = imag_ops.fused_step(members, norm, p, s, eps, idx,
-                                         impl=impl)
+        s2, a, pre = imag_ops.fused_step(members, norm, tree(leaves), s, eps,
+                                         idx, impl=impl)
         inner = torch.autograd.grad((s2 ** 2).mean() + (a * pre).mean(),
                                     leaves, create_graph=True)
         q = [x - 0.05 * g for x, g in zip(leaves, inner)]
-        s2, a, pre = imag_ops.fused_step(
-            members, norm, {"w": q[:2], "b": q[2:4], "log_std": q[4]}, s,
-            eps.flip(0), idx.flip(0), impl=impl)
+        s2, a, pre = imag_ops.fused_step(members, norm, tree(q), s,
+                                         eps.flip(0), idx.flip(0), impl=impl)
         outer = torch.autograd.grad((s2 ** 2).mean() + (pre ** 2).mean(),
                                     leaves)
         grads[impl] = (inner, outer)
@@ -889,9 +894,44 @@ def policy_improve(model_server, imag_ops) -> tuple:
                         "policy_version": policy_server.version,
                         "model_version": model_server.version}
         workers[name] = worker
+    launches = imag_ops.launches
     return workers["me-trpo"], {
         "env": LEARN_ENV, "policy_hidden": POLICY_HIDDEN,
-        "imag_fused_launches": imag_ops.launches, **record}
+        "policy_depth": pol_cfg.depth, "imag_fused_launches": launches,
+        **record, "on_path_check": check_improved_rollout(
+            workers["me-trpo"], model_server, env, imag_ops)}
+
+
+def check_improved_rollout(worker, model_server, env, imag_ops) -> dict:
+    """The kernel against the plain version on the main path's own tensors,
+    after its counts are read: the improved ME-TRPO policy and the
+    published ensemble, over one imagined horizon from the task's start
+    states, each step's rows the kernel's previous output."""
+    from repro_torch.mbrl import dynamics as DYN
+    from repro_torch.utils.tree import tree_to
+    cfg, pol = worker.algo.cfg, worker.state["policy"]
+    phi = tree_to(model_server.pull()[0], "cuda")
+    members, norm = phi["members"], phi["norm"]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    s = env.reset_batch(gen, cfg.imagine_batch)
+    idx, eps = DYN.rollout_draws(phi, cfg.imagine_horizon, cfg.imagine_batch,
+                                 env.act_dim, gen)
+    err = 0.0
+    with torch.no_grad():
+        for h in range(cfg.imagine_horizon):
+            got = imag_ops.fused_step(members, norm, pol, s, eps[h], idx[h])
+            want = imag_ops.fused_step(members, norm, pol, s, eps[h],
+                                       idx[h], impl="ref")
+            scale = max(1.0, max(w.abs().max().item() for w in want))
+            err = max(err, max((g - w).abs().max().item() / scale
+                               for g, w in zip(got, want)))
+            s = got[0]
+    if not (bool(torch.isfinite(s).all()) and err <= IMAG_TOL):
+        raise RuntimeError(f"imag_fused on the improved policy: max scaled "
+                           f"err {err} > {IMAG_TOL}")
+    return {"policy_widths": [w.shape[0] for w in pol["w"]]
+            + [pol["w"][-1].shape[1]], "steps": cfg.imagine_horizon,
+            "max_scaled_err": err, "tol": IMAG_TOL}
 
 
 def profile_improve(worker) -> dict:

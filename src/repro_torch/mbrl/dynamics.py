@@ -286,11 +286,11 @@ def step_fused(params, policy_params, s, eps, member_idx, *, impl=None,
                                plan=plan)
 
 
-def horizon_plan(params, member_idx, *, impl=None):
+def horizon_plan(params, member_idx):
     """Sort plans for a whole horizon of member assignments ((H, B) int),
     computed once before the rollout loop, or None when the step will not
     launch the kernel (the plain version is row-order-blind)."""
-    if not imag_ops.uses_kernel(member_idx, impl):
+    if not imag_ops.uses_kernel(member_idx):
         return None
     return imag_ops.sort_plan(member_idx, n_members(params))
 

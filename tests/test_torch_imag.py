@@ -43,8 +43,9 @@ IMAG_CASES = [
     (5, 37, 4, 2, 24, 12, 8, "rand"),
 ]
 # the trainer's widths (pr2_lego_stack: obs 23, act 7; ensemble hidden 256,
-# depth 2, 5 members; policy hidden 64) with a small batch
-PATH_CASE = (5, 12, 23, 7, 256, 64, 128, "rand")
+# depth 2, 5 members; examples/pr2_arm.py's policy, two hidden layers of 64)
+# with a small batch
+PATH_CASE = (5, 12, 23, 7, 256, (64, 64), 128, "rand")
 
 
 def _rand(rng, shape, scale=1.0):
@@ -52,7 +53,9 @@ def _rand(rng, shape, scale=1.0):
 
 
 def _inputs(K, B, obs, act, hid, phid, mode, seed=0):
-    """numpy trees: members, norm, pol, s, eps, member_idx."""
+    """numpy trees: members, norm, pol, s, eps, member_idx. ``phid``: the
+    policy's hidden width, or a tuple of widths for several hidden
+    layers."""
     rng = np.random.default_rng(seed)
     din = obs + act
     dims = [din, hid, hid, obs]
@@ -63,8 +66,10 @@ def _inputs(K, B, obs, act, hid, phid, mode, seed=0):
             "sig_in": np.abs(_rand(rng, (din,))) + 0.5,
             "mu_out": _rand(rng, (obs,), 0.05),
             "sig_out": np.abs(_rand(rng, (obs,))) + 0.5}
-    pol = {"w": [_rand(rng, (obs, phid), 0.3), _rand(rng, (phid, act), 0.3)],
-           "b": [_rand(rng, (phid,), 0.1), _rand(rng, (act,), 0.1)],
+    pdims = [obs, *(phid if isinstance(phid, tuple) else (phid,)), act]
+    pol = {"w": [_rand(rng, (a, b), 0.3)
+                 for a, b in zip(pdims[:-1], pdims[1:])],
+           "b": [_rand(rng, (b,), 0.1) for b in pdims[1:]],
            "log_std": np.full((act,), -0.5, np.float32)}
     s = _rand(rng, (B, obs))
     eps = _rand(rng, (B, act))
@@ -158,6 +163,7 @@ GRAD_CASES = [
     (5, 37, 4, 2, 24, 12, 8, "rand"),
     (1, 20, 5, 2, 32, 16, 8, "rand"),
     (3, 48, 3, 1, 96, 48, 16, "one"),
+    (5, 12, 6, 2, 16, (8, 8), 8, "rand"),  # two hidden policy layers
 ]
 
 
@@ -191,7 +197,7 @@ def test_fused_step_function_grads_match_jax_grad(case):
         _close_to_scale(g.detach().numpy(), w, 1e-5)
 
 
-@pytest.mark.parametrize("case", GRAD_CASES[:2])
+@pytest.mark.parametrize("case", GRAD_CASES[:2] + GRAD_CASES[-1:])
 def test_fused_step_second_order_matches_nested_jax_grad(case):
     """The gradient of a function of an inner gradient, as MB-MPO takes it:
     adapt the policy by one gradient step of one fused step's loss, then

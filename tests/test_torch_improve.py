@@ -202,7 +202,7 @@ def test_rollout_plan_and_draws_on_the_cpu():
     assert int(members.min()) >= 0 and int(members.max()) < K
     # the plain version is row-order-blind: no plan unless the kernel runs
     assert DYN.horizon_plan(tm, members) is None
-    order, offsets = DYN.horizon_plan(tm, members, impl="cuda")
+    order, offsets = imag_ops.sort_plan(members, K)
     assert order.shape == (7, 5) and offsets.shape == (7, K + 1)
     with pytest.raises(ValueError, match="Generator"):
         DYN.imagine_rollout(tm, PI.sample_action, tree_from_jax(_np(pol)),

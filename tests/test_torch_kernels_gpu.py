@@ -201,19 +201,22 @@ def test_gmm_kernels_refuse_what_they_cannot_run(card):
 IMAG_TOL = 1e-4
 
 IMAG_CASES = [
-    # K, B, obs, act, hidden, policy hidden, group sizes (None: sampled)
-    (5, 64, 23, 7, 256, 64, None),        # the trainer's imagination step
-    (5, 4096, 23, 7, 256, 64, None),
-    (1, 64, 23, 7, 256, 64, None),        # MB-MPO's K=1 member slice
-    (4, 64, 3, 1, 96, 48, (10, 0, 54, 0)),       # empty groups
-    (3, 48, 3, 1, 96, 48, (0, 48, 0)),           # one group owns the batch
-    (5, 37, 4, 2, 24, 12, (5, 8, 0, 20, 4)),     # straddling, B not a tile
-    (1, 20, 5, 2, 32, 16, (20,)),                # K=1
-    (3, 70, 6, 3, 300, 20, None),         # a layer wider than a column pass
+    # K, B, obs, act, hidden, policy hidden, policy depth, group sizes
+    # (None: sampled). The trainer's policy is examples/pr2_arm.py's,
+    # 23 -> 64 -> 64 -> 7; the edge shapes keep test_kernels_interpret.py's
+    # one hidden layer.
+    (5, 64, 23, 7, 256, 64, 2, None),     # the trainer's imagination step
+    (5, 4096, 23, 7, 256, 64, 2, None),
+    (1, 64, 23, 7, 256, 64, 2, None),     # MB-MPO's K=1 member slice
+    (4, 64, 3, 1, 96, 48, 1, (10, 0, 54, 0)),     # empty groups
+    (3, 48, 3, 1, 96, 48, 1, (0, 48, 0)),         # one group owns the batch
+    (5, 37, 4, 2, 24, 12, 1, (5, 8, 0, 20, 4)),   # straddling, B not a tile
+    (1, 20, 5, 2, 32, 16, 1, (20,)),              # K=1
+    (3, 70, 6, 3, 300, 20, 1, None),      # a layer wider than a column pass
 ]
 
 
-def _imag_inputs(rng, card, K, B, obs, act, hid, phid, sizes):
+def _imag_inputs(rng, card, K, B, obs, act, hid, phid, pdepth, sizes):
     din = obs + act
     dims = [din, hid, hid, obs]
     members = {"w": [_randn(rng, (K, a, b), card) * a ** -0.5 * 2
@@ -223,10 +226,10 @@ def _imag_inputs(rng, card, K, B, obs, act, hid, phid, sizes):
             "sig_in": _randn(rng, (din,), card).abs() + 0.5,
             "mu_out": _randn(rng, (obs,), card) * 0.1,
             "sig_out": _randn(rng, (obs,), card).abs() + 0.5}
-    pol = {"w": [_randn(rng, (obs, phid), card),
-                 _randn(rng, (phid, act), card)],
-           "b": [_randn(rng, (phid,), card) * 0.2,
-                 _randn(rng, (act,), card) * 0.2],
+    pdims = [obs] + [phid] * pdepth + [act]
+    pol = {"w": [_randn(rng, (a, b), card)
+                 for a, b in zip(pdims[:-1], pdims[1:])],
+           "b": [_randn(rng, (b,), card) * 0.2 for b in pdims[1:]],
            "log_std": torch.full((act,), -0.5, device=card)}
     s, eps = _randn(rng, (B, obs), card) * 2, _randn(rng, (B, act), card) * 2
     if sizes is None:
@@ -258,21 +261,23 @@ def test_imag_function_first_and_second_order_grads_match_ref(card):
     of a loss at a policy adapted by one inner gradient step, against the
     same through the plain version's autograd."""
     rng = np.random.default_rng(6)
-    members, norm, pol, s, eps, idx = _imag_inputs(rng, card, 5, 64, 23, 7,
-                                                   256, 64, None)
+    members, norm, pol, s, eps, idx = _imag_inputs(rng, card,
+                                                   *IMAG_CASES[0])
+    n = len(pol["w"])
+
+    def tree(leaves):
+        return {"w": leaves[:n], "b": leaves[n:2 * n], "log_std": leaves[-1]}
     grads = {}
     for impl in ("cuda", "ref"):
         leaves = [x.detach().clone().requires_grad_(True)
                   for x in pol["w"] + pol["b"] + [pol["log_std"]]]
-        p = {"w": leaves[:2], "b": leaves[2:4], "log_std": leaves[4]}
-        s2, a, pre = imag_ops.fused_step(members, norm, p, s, eps, idx,
-                                         impl=impl)
+        s2, a, pre = imag_ops.fused_step(members, norm, tree(leaves), s, eps,
+                                         idx, impl=impl)
         inner = torch.autograd.grad((s2 ** 2).mean() + (a * pre).mean(),
                                     leaves, create_graph=True)
         adapted = [x - 0.05 * g for x, g in zip(leaves, inner)]
-        q = {"w": adapted[:2], "b": adapted[2:4], "log_std": adapted[4]}
-        s2, a, pre = imag_ops.fused_step(members, norm, q, s, eps.flip(0),
-                                         idx.flip(0), impl=impl)
+        s2, a, pre = imag_ops.fused_step(members, norm, tree(adapted), s,
+                                         eps.flip(0), idx.flip(0), impl=impl)
         grads[impl] = (inner, torch.autograd.grad(
             (s2 ** 2).mean() + (pre ** 2).mean(), leaves))
     for order in (0, 1):
@@ -286,7 +291,7 @@ def test_imag_function_first_and_second_order_grads_match_ref(card):
 def test_imag_kernel_refuses_what_it_cannot_run(card):
     rng = np.random.default_rng(7)
     members, norm, pol, s, eps, idx = _imag_inputs(rng, card, 3, 16, 3, 1, 8,
-                                                   8, None)
+                                                   8, 1, None)
     order, offs = imag_ops.sort_plan(idx, 3)
     with pytest.raises(ValueError, match="float32"):
         imag_cuda.fused_step_sorted(members, norm, pol, s.double(), eps, offs)
