@@ -22,6 +22,10 @@ Phases, each printing one JSON line:
    member slice and at edge shapes, with device times by CUDA-graph replay;
    then first- and second-order gradients through its autograd Function
    against the plain version's autograd.
+   ``ssd_check``: the SSD chunked-scan kernel ``ssd_chunked`` against its
+   plain version at the Mamba2-2.7B prefill shape (bf16, final state out),
+   at the stateless forward's, with a state in and out, and at edge
+   shapes, with device times by CUDA-graph replay.
 4. ``model_check``: GLM-4-9B at full width, cut to 2 layers; prefill logits
    through the kernel against the same through the plain attention.
 5. ``serve``: ``WorldModelServer`` on the full 40-layer GLM-4-9B with a
@@ -49,12 +53,24 @@ Phases, each printing one JSON line:
    step, one ``improve`` input shape, one policy version per step, finite
    imagined returns and at least one TRPO step found. Then
    ``improve_profile``: ``torch.profiler`` over one more ME-TRPO step.
-9. ``kernels``: one entry per kernel, as the port's records expect.
+9. ``ssm_model_check``: Mamba2-2.7B at full width, cut to 2 layers, f32:
+   prefill(S) then decode(token S) against prefill(S + 1), and the kernel
+   route against the plain scan.
+10. ``ssm_serve``: lock-step serving of the full 64-layer Mamba2-2.7B in
+   bf16: batch 4, 1,024-token prompts, 32 greedy tokens. Asserts 64
+   ``ssd_chunked`` launches per prefill, one decode input shape and finite
+   logits; reports prefill, time to first token, decode tokens/s, tick
+   latencies and peak memory. Then ``ssm_tick_profile``:
+   ``torch.profiler`` over one more tick.
+11. ``ssm_forward``: the stateless ``loss_forward`` at batch 4, 2,048
+   tokens, forward only: 64 launches, tokens/s, the scan's share of
+   device time.
+12. ``kernels``: one entry per kernel, as the port's records expect.
 
 Each kernel's launches are counted from 0 just before the phase that
 drives its path (``serve``, ``model_learn``, ``assigned_predict``,
-``policy_improve``) and read just after it; comparison launches never
-count. The line before the last
+``policy_improve``, ``ssm_serve``, ``ssm_forward``) and read just after
+it; comparison launches never count. The line before the last
 is the card's name and power limit from ``nvidia-smi``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It imports nothing of JAX and nothing
@@ -105,6 +121,17 @@ IMAG_TOL = 1e-4
 # policy improvement: AlgoConfig defaults, the policy of examples/pr2_arm.py
 IMPROVE_STEPS = {"me-trpo": 3, "me-ppo": 2, "mb-mpo": 2}
 POLICY_HIDDEN = 64
+# ssd_chunked vs the plain scan, relative to the output's scale: f32 sums of
+# up to 2·Q products in another order; a bf16 output may round to the
+# neighbouring bf16 value (one ulp, 2^-7 of |y|, at most)
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+# Mamba2-2.7B at full width, 2 layers, f32: prefill(S) + decode(token S)
+# against prefill(S + 1) is one function computed chunked and then
+# stepwise; the kernel route against the plain one sums in another order
+SSM_DECODE_TOL, SSM_ROUTE_TOL = 1e-3, 1e-4
+SSM_CHECK_S = 200                    # two chunks, the second padded
+SSM_BATCH, SSM_PROMPT, SSM_NEW = 4, 1024, 32
+SSM_FORWARD_SEQ = 2048
 
 
 def emit(obj) -> None:
@@ -951,6 +978,293 @@ def profile_improve(worker) -> dict:
             "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
 
 
+# ---------------------------------------------------------------- phase 3
+
+# name, B, L, H, P, N, G, chunk, dtype, initial state, final state, dt
+# scale (small: slow decay, so the carried state shows in y). The first
+# two are the main path's: the prefill (final state out) and the stateless
+# forward of Mamba2-2.7B.
+SSD_CASES = [
+    ("prefill_b4_l1024", 4, 1024, 80, 64, 128, 1, 128, torch.bfloat16,
+     False, True, 1.0),
+    ("forward_b4_l2048", 4, 2048, 80, 64, 128, 1, 128, torch.bfloat16,
+     False, False, 1.0),
+    ("state_in_out_l300", 2, 300, 8, 64, 128, 1, 128, torch.float32,
+     True, True, 0.02),
+    ("state_in_out_bf16", 1, 300, 8, 64, 128, 1, 128, torch.bfloat16,
+     True, True, 0.02),
+    # test_kernels_interpret.py's and test_kernels.py's cases, and L < chunk
+    ("edge_l256_c64", 2, 256, 4, 32, 16, 1, 64, torch.float32,
+     False, False, 1.0),
+    ("edge_l100_g2_c32", 1, 100, 8, 16, 32, 2, 32, torch.float32,
+     True, True, 0.1),
+    ("edge_p64_n64_bf16", 2, 64, 4, 64, 64, 1, 64, torch.bfloat16,
+     False, True, 1.0),
+    ("edge_l20_lt_chunk", 1, 20, 4, 16, 8, 1, 32, torch.float32,
+     True, True, 0.1),
+]
+SSD_MAIN = "prefill_b4_l1024"
+
+
+def ssd_inputs(gen, B, L, H, P, N, G, dtype, with_state, dt_scale):
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    x = rnd(B, L, H, P, scale=0.5).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(B, L, H)) * dt_scale
+    A = -torch.exp(rnd(H, scale=0.3))
+    Bm = rnd(B, L, G, N, scale=0.3).to(dtype)
+    C = rnd(B, L, G, N, scale=0.3).to(dtype)
+    s0 = rnd(B, H, P, N, scale=0.5) if with_state else None
+    return x, dt, A, Bm, C, s0
+
+
+def ssd_bound_ms(x, dt, Bm, C, s0, want_state, chunk) -> tuple:
+    """Least time for the card: the bytes the scan must move (x, dt, A, B,
+    C and the initial state read once, y and the final state written once)
+    over HBM bandwidth, against its products at x's dtype's peak rate: per
+    head and chunk of Q steps, C·Bᵀ (2·Q²·N), the masked block times xs
+    (2·Q²·P), C·stateᵀ and the state update (2·Q·P·N each)."""
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4 + H * 4
+              + (Bm.numel() + C.numel()) * Bm.element_size()
+              + (s0.numel() * 4 if s0 is not None else 0)
+              + (B * H * P * N * 4 if want_state else 0))
+    n_chunks = -(-L // chunk)
+    flops = 2.0 * B * H * n_chunks * (chunk * chunk * (N + P)
+                                      + 2 * chunk * P * N)
+    t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def check_ssd(ssd_cuda, ssd_ref) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {}
+    for name, B, L, H, P, N, G, Q, dt_, s_in, s_out, dts in SSD_CASES:
+        x, dt, A, Bm, C, s0 = ssd_inputs(gen, B, L, H, P, N, G, dt_, s_in,
+                                         dts)
+        kw = dict(chunk=Q, initial_state=s0, return_final_state=s_out)
+
+        def kernel():
+            return ssd_cuda.ssd_chunked(x, dt, A, Bm, C, **kw)
+
+        def plain():
+            return ssd_ref.ssd_chunked(x, dt, A, Bm, C, **kw)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        got, want = ((got, want) if s_out else ((got,), (want,)))
+        abs_errs = [(g.float() - w.float()).abs().max().item()
+                    for g, w in zip(got, want)]
+        scales = [w.float().abs().max().item() for w in want]
+        errs = [e / max(1.0, sc) for e, sc in zip(abs_errs, scales)]
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        if not (finite and max(errs) <= SSD_TOL[dt_]):
+            raise RuntimeError(f"ssd_chunked {name}: scaled errs {errs} > "
+                               f"{SSD_TOL[dt_]} (finite {finite})")
+        bound, bound_by = ssd_bound_ms(x, dt, Bm, C, s0, s_out, Q)
+        rows[name] = {
+            "shape": [B, L, H, P, N, G, Q],
+            "dtype": str(dt_).replace("torch.", ""),
+            "initial_state": s_in, "final_state": s_out,
+            "max_abs_err": max(abs_errs), "max_abs_err_y_state": abs_errs,
+            "scale_y_state": scales, "scaled_err": max(errs),
+            "tol": SSD_TOL[dt_],
+            "ms": device_ms(kernel, n=10, reps=3),
+            "plain_ms": device_ms(plain, n=3, reps=2),
+            "library_ms": None,  # no PyTorch call computes this function
+            "bound_ms": bound, "bound_by": bound_by}
+        emit({"phase": "ssd_check", "kernel": "ssd_chunked", "case": name,
+              **rows[name]})
+    return rows
+
+
+# ---------------------------------------------------------------- phase 9
+
+def _scaled(got, want) -> float:
+    return ((got.float() - want.float()).abs().max().item()
+            / max(1.0, want.float().abs().max().item()))
+
+
+def check_ssm_model(CONFIG, init_params, api, InputShape) -> dict:
+    """Mamba2-2.7B at full width, cut to 2 layers, f32, through the port's
+    entry points: prefill(S) then decode(token S) against the last logits
+    of prefill(S + 1), and the kernel route against the plain scan."""
+    cfg = dataclasses.replace(CONFIG, num_layers=2, dtype="float32",
+                              name=CONFIG.name + "-l2-f32")
+    model = init_params(cfg, 0)
+    S, B = SSM_CHECK_S, 2
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)).cuda()
+
+    def prefill(n, impl=None):
+        return api.build(cfg, InputShape("p", n, B, "prefill"),
+                         ssd_impl=impl).fn(model, {"tokens": tokens[:, :n]})
+    dec = api.build(cfg, InputShape("d", S + 1, B, "decode"))
+    lg, cache = prefill(S)
+    lg_ref, cache_ref = prefill(S, "ref")
+    route_err = max(_scaled(lg, lg_ref),
+                    _scaled(cache["ssm"], cache_ref["ssm"]))
+    lg_dec, cache = dec.fn(model, cache, tokens[:, S:])
+    lg_full, _ = prefill(S + 1)
+    torch.cuda.synchronize()
+    decode_err = _scaled(lg_dec, lg_full)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (lg, lg_dec, lg_full, cache["ssm"]))
+    if not (finite and route_err <= SSM_ROUTE_TOL
+            and decode_err <= SSM_DECODE_TOL):
+        raise RuntimeError(f"ssm_model_check: kernel vs plain {route_err} "
+                           f"(tol {SSM_ROUTE_TOL}), decode vs prefill "
+                           f"{decode_err} (tol {SSM_DECODE_TOL}), finite "
+                           f"{finite}")
+    out = {"config": cfg.name, "layers": cfg.num_layers, "batch": B,
+           "prefill_len": S, "chunk": cfg.ssm_chunk,
+           "kernel_vs_plain_scaled_err": route_err, "tol": SSM_ROUTE_TOL,
+           "decode_vs_prefill_scaled_err": decode_err,
+           "decode_tol": SSM_DECODE_TOL,
+           "logits_std": lg_full.std().item(),
+           "argmax_equal": bool(torch.equal(lg_dec.argmax(-1),
+                                            lg_full.argmax(-1)))}
+    del model, cache, cache_ref
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 10
+
+def ssm_serve(CONFIG, init_params, api, InputShape, ssd_ops) -> tuple:
+    """Lock-step serving of the full Mamba2-2.7B in bf16 through the port's
+    entry points: prefill a batch of prompts, then greedy decode. Returns
+    the model, the decode bundle, the cache and the next tokens (for the
+    profile after the counts are read) and the phase's record."""
+    cfg = CONFIG
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, 1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S, n_new = SSM_BATCH, SSM_PROMPT, SSM_NEW
+    rng = np.random.default_rng(5)
+    pre = api.build(cfg, InputShape("p", S, B, "prefill"))
+    dec = api.build(cfg, InputShape("d", S + n_new, B, "decode"))
+    ssd_ops.launches = 0
+    prefill_ms, launches_per_prefill = [], []
+    for _ in range(2):  # a cold prefill, then a warm one with fresh prompts
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+        l0 = ssd_ops.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = pre.fn(model, {"tokens": tokens})
+        tok = torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None].to(
+            torch.int32)
+        tok.cpu()  # the first token is on the host: time to first token
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        launches_per_prefill.append(ssd_ops.launches - l0)
+    finite = bool(torch.isfinite(logits).all())
+    out_tokens, tick_ms = [tok], []
+    for _ in range(n_new - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = dec.fn(model, cache, tok)
+        tok = torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None].to(
+            torch.int32)
+        tok.cpu()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        finite = finite and bool(torch.isfinite(logits).all())
+        out_tokens.append(tok)
+    launches = ssd_ops.launches
+    toks = torch.cat(out_tokens, 1)
+    checks = {
+        f"{cfg.num_layers} ssd_chunked launches per prefill":
+            launches_per_prefill == [cfg.num_layers] * 2,
+        "no scan launch in decode": launches == 2 * cfg.num_layers,
+        "one decode input shape": dec.fn.shape_count == 1,
+        "one prefill input shape": pre.fn.shape_count == 1,
+        "finite logits": finite,
+        "tokens in the vocab": bool(((toks >= 0)
+                                     & (toks < cfg.vocab_size)).all()),
+        "index advanced": int(cache["index"]) == S + n_new - 1,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"ssm_serve failed: {failed}; launches "
+                           f"{launches_per_prefill}, {launches}")
+    ticks = sorted(tick_ms)
+    record = {
+        "config": cfg.name, "layers": cfg.num_layers, "batch": B,
+        "prompt_len": S, "new_tokens": n_new, "dtype": cfg.dtype,
+        "init_params_s": init_s, "prefill_ms_cold_warm": prefill_ms,
+        "ttft_ms": prefill_ms[-1],
+        "prefill_tokens_per_s": B * S / (prefill_ms[-1] / 1e3),
+        "decode_tokens_per_s": B * len(tick_ms) / (sum(tick_ms) / 1e3),
+        "tick_ms_p50": ticks[len(ticks) // 2],
+        "tick_ms_p95": ticks[min(len(ticks) - 1,
+                                 int(round(0.95 * (len(ticks) - 1))))],
+        "ssd_launches": launches,
+        "ssd_launches_per_prefill": launches_per_prefill,
+        "decode_shapes": dec.fn.shape_count,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "tokens_row0": toks[0, :8].tolist()}
+    return (model, dec, cache, tok), record
+
+
+def profile_ssm_tick(model, dec, cache, tok) -> dict:
+    """Where one full-depth decode tick's time goes, after the main path's
+    counts are read."""
+    kernels, wall_ms = profiled(lambda: dec.fn(model, cache, tok))
+    device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device,
+            "device_busy_share": device / wall_ms, "kernels": len(kernels)}
+
+
+# ---------------------------------------------------------------- phase 11
+
+def ssm_forward(model, LM, ssd_ops) -> dict:
+    """The stateless forward and loss of the full Mamba2-2.7B (forward
+    only), then ``torch.profiler`` over one more run for the scan's share
+    of device time."""
+    cfg = model.cfg
+    B, S = SSM_BATCH, SSM_FORWARD_SEQ
+    rng = np.random.default_rng(6)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+        for k in ("tokens", "labels")}
+    ssd_ops.launches = 0
+    ms = []
+    with torch.no_grad():
+        for _ in range(2):  # cold, then warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, c, _ = LM.loss_forward(cfg, model, batch)
+            loss = (s / c).item()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = ssd_ops.launches
+        if launches != 2 * cfg.num_layers or not np.isfinite(loss):
+            raise RuntimeError(f"ssm_forward: {launches} ssd_chunked "
+                               f"launches for 2 forwards, loss {loss}")
+        kernels, wall_ms = profiled(
+            lambda: LM.loss_forward(cfg, model, batch))
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+    device = sum(by_name.values())
+    ssd_ms = sum(v for n, v in by_name.items() if "ssd_chunked" in n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"config": cfg.name, "batch": B, "seq": S, "loss": loss,
+            "ms_cold_warm": ms, "tokens_per_s": B * S / (ms[-1] / 1e3),
+            "ssd_launches": launches,
+            "ssd_launches_per_forward": launches // 2,
+            "profiled_wall_ms": wall_ms, "device_ms": device,
+            "device_busy_share": device / wall_ms, "ssd_ms": ssd_ms,
+            "ssd_share_of_device": ssd_ms / device,
+            "top_kernels_ms": [[n[:80], v] for n, v in top]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -958,6 +1272,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.glm4_9b import CONFIG
+    from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA
     from repro_torch.core.servers import ParameterServer
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
@@ -969,7 +1284,12 @@ def main() -> int:
     from repro_torch.kernels.imag import cuda as imag_cuda
     from repro_torch.kernels.imag import ops as imag_ops
     from repro_torch.kernels.imag import ref as imag_ref
+    from repro_torch.kernels.ssd import cuda as ssd_cuda
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.models import api
+    from repro_torch.models import lm as LM
+    from repro_torch.models.config import InputShape
     from repro_torch.models.lm import init_params
     from repro_torch.serve import WorldModelServer
 
@@ -981,7 +1301,8 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    sources = [fa_cuda.SOURCE, gmm_cuda.SOURCE, imag_cuda.SOURCE]
+    sources = [fa_cuda.SOURCE, gmm_cuda.SOURCE, imag_cuda.SOURCE,
+               ssd_cuda.SOURCE]
     t0 = time.perf_counter()
     built = build.build(sources)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -992,6 +1313,7 @@ def main() -> int:
     rows = check_attention(fa_ops, fa_ref)
     gmm_rows = check_gmm(gmm_cuda, gmm_ref)
     imag_rows = check_imag(imag_cuda, imag_ops, imag_ref)
+    ssd_rows = check_ssd(ssd_cuda, ssd_ref)
     emit({"phase": "imag_grad_check", **check_imag_grads(imag_ops)})
     emit({"phase": "model_check", **check_model(CONFIG, init_params, api)})
     srv, served = serve(CONFIG, init_params, ParameterServer,
@@ -1009,11 +1331,29 @@ def main() -> int:
     worker, improved = policy_improve(model_server, imag_ops)
     emit({"phase": "policy_improve", **improved})
     emit({"phase": "improve_profile", **profile_improve(worker)})
+    del worker, learner, model_server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit({"phase": "ssm_model_check",
+          **check_ssm_model(MAMBA, init_params, api, InputShape)})
+    (model, dec, cache, tok), ssm_served = ssm_serve(
+        MAMBA, init_params, api, InputShape, ssd_ops)
+    emit({"phase": "ssm_serve", **ssm_served})
+    emit({"phase": "ssm_tick_profile",
+          **profile_ssm_tick(model, dec, cache, tok)})
+    del dec, cache
+    ssm_fwd = ssm_forward(model, LM, ssd_ops)
+    emit({"phase": "ssm_forward", **ssm_fwd})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
     main_row = rows[MAIN_PATH_CASE]
     eq, rg = (gmm_rows["equal"][GMM_EQUAL_MAIN],
               gmm_rows["ragged"][GMM_RAGGED_MAIN])
     im = imag_rows[IMAG_MAIN]
+    sd = ssd_rows[SSD_MAIN]
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": str(fa_cuda.SOURCE.relative_to(ROOT)),
@@ -1050,7 +1390,17 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in imag_rows.values()),
         "ms": im["ms"], "plain_ms": im["plain_ms"],
         "bound_ms": im["bound_ms"], "bound_by": im["bound_by"],
-        "library_ms": im["library_ms"], "shape": IMAG_MAIN}]})
+        "library_ms": im["library_ms"], "shape": IMAG_MAIN}, {
+        "name": "ssd_chunked", "route": "cuda",
+        "source": str(ssd_cuda.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/ssd/pallas.py:68",
+        "launches": ssm_served["ssd_launches"] + ssm_fwd["ssd_launches"],
+        "launches_serve": ssm_served["ssd_launches"],
+        "launches_forward": ssm_fwd["ssd_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in ssd_rows.values()),
+        "ms": sd["ms"], "plain_ms": sd["plain_ms"],
+        "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
+        "library_ms": sd["library_ms"], "shape": SSD_MAIN}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,17 @@
+"""Mamba2-2.7B — attention-free SSD (state-space duality).
+[arXiv:2405.21060]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-2.7b", family="ssm", num_layers=64, d_model=2560,
+    num_heads=0, num_kv_heads=0, d_ff=0, vocab_size=50280,
+    ssm_state=128, ssm_expand=2, ssm_head_dim=64, ssm_groups=1,
+    source="arXiv:2405.21060",
+)
+
+REDUCED = ModelConfig(
+    name="mamba2-reduced", family="ssm", num_layers=2, d_model=256,
+    num_heads=0, num_kv_heads=0, d_ff=0, vocab_size=512,
+    ssm_state=16, ssm_expand=2, ssm_head_dim=32, ssm_groups=1,
+    source="arXiv:2405.21060",
+)

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 Port of ``repro/configs/registry.py``. Every id of the reference resolves,
-but only the dense decoders of the serving path are ported so far; the
-others raise and point at ROADMAP.md, which lists what is still to port.
+but only the dense decoders of the serving path and the pure-ssm
+Mamba2 are ported so far; the others raise and point at ROADMAP.md, which
+lists what is still to port.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ ARCH_IDS = [
     "mamba2_2_7b",
 ]
 
-PORTED = {"glm4_9b", "granite_3_8b", "qwen3_14b"}
+PORTED = {"glm4_9b", "granite_3_8b", "qwen3_14b", "mamba2_2_7b"}
 
 # CLI ids (dashes) -> module names
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}

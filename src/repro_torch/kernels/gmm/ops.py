@@ -7,17 +7,22 @@ ragged (lhs 2-D + ``group_sizes``, rows sorted by group). With
 CPU tensors to the plain ``ref``; a CUDA tensor reaches ``ref`` only when
 the caller names ``impl="ref"``, as the on-card comparison does.
 
-Both layouts run inside a ``torch.autograd.Function`` that takes the
-grouped product as a parameter, so the CPU runs the same backward wiring
-with the plain product that the card runs with the kernel:
+Gradients. The reference has no backward rule of its own for either
+kernel (``kernels/gmm/`` holds no ``custom_vjp``); its gradient is autodiff
+of the plain products, which this reproduces:
 
-* equal: the backward is the same kernel on transposed operands,
-  ``dX = dY x W^T`` and ``dW = X^T x dY``, each only when autograd asks
-  for it. The reference has no backward rule of its own for this kernel
-  (``kernels/gmm/`` holds no ``custom_vjp``); its gradient is autodiff of
-  ``ref.ensemble_mlp``, which this reproduces.
-* ragged: forward only. Nothing on the ported path differentiates through
-  ``predict_assigned``; the backward raises rather than fall back.
+* equal: both routes run inside a ``torch.autograd.Function`` that takes
+  the grouped product as a parameter, so the CPU runs the same backward
+  wiring with the plain product that the card runs with the kernel. The
+  backward is the same kernel on transposed operands, ``dX = dY x W^T``
+  and ``dW = X^T x dY``, each only when autograd asks for it.
+* ragged: the plain route calls ``ref.grouped_matmul`` directly, so
+  autograd runs through its gather as ``jax.grad`` runs through the
+  reference's ``ref`` route. The kernel route runs inside
+  ``RaggedGroupedMatmul``, whose backward recomputes the plain product on
+  its saved inputs and returns autograd's vector-Jacobian product of it
+  (the pattern of ``imag/ops.py``'s ``FusedStep``), until the ragged
+  kernel has a backward kernel of its own.
 
 The counters count kernel launches made here, the equal kernel's forward
 and backward apart, so a run can show that its path went through them.
@@ -81,18 +86,27 @@ class EqualGroupedMatmul(torch.autograd.Function):
 
 
 class RaggedGroupedMatmul(torch.autograd.Function):
-    """Ragged lhs (M, K) x rhs (G, K, N) through ``product``; forward
-    only."""
+    """Ragged lhs (M, K) x rhs (G, K, N) through ``product``, with
+    autograd of the plain ``ref.grouped_matmul`` as the backward."""
 
     @staticmethod
     def forward(ctx, lhs, rhs, group_sizes, product):
+        ctx.save_for_backward(lhs, rhs, group_sizes)
         return product(lhs, rhs, group_sizes)
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "the ragged grouped matmul has no backward yet: it comes with "
-            "MoE and legacy-rollout training (ROADMAP.md queue 1, item 17)")
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            # recompute on detached aliases of the inputs (no copy), so the
+            # gradient stops at them
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip((lhs, rhs), need)]
+            out = ref.grouped_matmul(*leaves, group_sizes)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(leaves, need) if n], dy))
+        return tuple(next(grads) if n else None for n in need) + (None, None)
 
 
 def _use_kernel(t: torch.Tensor, impl) -> bool:
@@ -113,9 +127,9 @@ def grouped_matmul(lhs, rhs, group_sizes=None, *, impl: str | None = None):
     if group_sizes is None:
         return EqualGroupedMatmul.apply(
             lhs, rhs, _kernel_equal if kernel else _ref_equal)
-    return RaggedGroupedMatmul.apply(
-        lhs, rhs, group_sizes,
-        _kernel_ragged if kernel else ref.grouped_matmul)
+    if not kernel:
+        return ref.grouped_matmul(lhs, rhs, group_sizes)
+    return RaggedGroupedMatmul.apply(lhs, rhs, group_sizes, _kernel_ragged)
 
 
 def ensemble_mlp(members, x, *, impl: str | None = None):

@@ -1,10 +1,14 @@
-"""Serve entry points: the serve subset of ``repro/models/api.py``.
+"""Step entry points: the serving subset of ``repro/models/api.py``.
 
 The reference wraps each step in ``shard_map`` + ``jit`` and counts traces.
 PyTorch runs eagerly, so a bundle's ``fn`` is a plain callable on a device
 that counts the distinct input shapes it has seen (``shape_count``). That
-keeps the serve tier's invariant assertable: one decode shape forever and
-at most one prefill shape per prompt bucket.
+keeps the serving invariants assertable: one decode shape forever and at
+most one prefill shape per prompt bucket.
+
+``build`` makes the lock-step prefill and decode steps (the ssm family's
+serving path); ``build_serve_prefill`` / ``build_serve_decode`` make the
+slot-pool steps of the continuous-batching serve tier (the dense family).
 """
 from __future__ import annotations
 
@@ -54,6 +58,33 @@ def grow_cache(cache, to_len: int):
             out[key] = F.pad(a, (0, 0) * (a.dim() - 3) + (0, pad))
     out["pos"] = F.pad(cache["pos"], (0, pad), value=-1)
     return out
+
+
+def build(cfg: ModelConfig, shape: InputShape, *, device=None,
+          ssd_impl: str | None = None) -> StepBundle:
+    """The lock-step step of ``shape.kind``:
+
+    * ``"prefill"``: ``bundle.fn(params, batch) -> (logits, cache)``, batch
+      ``{"tokens": (B, S)}``; ``ssd_impl="ref"`` runs the plain scan instead
+      of the kernel (for the on-card comparison only);
+    * ``"decode"``: ``bundle.fn(params, cache, token) -> (logits, cache')``
+      for one token ``(B, 1)``; the cache's states are updated in place,
+      where the reference donates the cache to its jit.
+
+    ``"train"`` is not ported: the scan kernel has no backward yet."""
+    dev = resolve_device(device)
+    if shape.kind == "prefill":
+        fn = LM.make_prefill(cfg, ssd_impl=ssd_impl)
+    elif shape.kind == "decode":
+        fn = LM.make_decode(cfg)
+    elif shape.kind == "train":
+        raise NotImplementedError(
+            "the train step is not ported to repro_torch yet: it needs "
+            "backward kernels (ssd, flash attention); see ROADMAP.md, open "
+            "items")
+    else:
+        raise ValueError(f"unknown step kind {shape.kind!r}")
+    return StepBundle(shape.kind, ShapeCounted(fn), cfg, shape, dev)
 
 
 def build_serve_prefill(cfg: ModelConfig, global_batch: int, seq_len: int,

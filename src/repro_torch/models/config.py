@@ -64,6 +64,18 @@ class ModelConfig:
         mult = max(tp, 1)
         return math.ceil(self.d_ff / mult) * mult
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def is_ssm_family(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
 
 @dataclasses.dataclass(frozen=True)
 class InputShape:

@@ -1,4 +1,5 @@
-"""Transformer building blocks: the serve subset of ``repro/models/layers.py``.
+"""Transformer building blocks: the serving and loss subset of
+``repro/models/layers.py``.
 
 Same numerics as the reference on one device (its tensor-parallel
 collectives are no-ops at tp=1 and are not ported): norms, rope and softmax
@@ -220,6 +221,40 @@ def embed_tokens(cfg: ModelConfig, p, tokens):
     ok = (tokens >= 0) & (tokens < table.shape[0])
     e = table[torch.clamp(tokens, 0, table.shape[0] - 1)]
     return torch.where(ok[..., None], e, torch.zeros_like(e))
+
+
+def lm_loss(cfg: ModelConfig, p, h, labels, *, chunk_tokens: int = 2048):
+    """Softmax cross-entropy over the padded vocab, chunked over tokens.
+
+    h: (B, S, d); labels: (B, S) int (-1 = ignore). The padding columns of
+    the vocab are masked out of the softmax (``col_valid``). Returns
+    ``(sum_loss, count)``: f32 and int64 scalars."""
+    d = h.shape[-1]
+    h = rmsnorm(h, p["ln_f"])
+    hf = h.reshape(-1, d)
+    lf = labels.reshape(-1)
+    V = p["head"].shape[1]
+    col_valid = torch.arange(V, device=h.device) < cfg.vocab_size
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.int64, device=h.device)
+    for s0 in range(0, hf.shape[0], chunk_tokens):
+        hc, lc = hf[s0:s0 + chunk_tokens], lf[s0:s0 + chunk_tokens]
+        logits = dot_f32(hc, p["head"])
+        logits = torch.where(col_valid[None, :], logits,
+                             torch.full_like(logits, NEG_INF))
+        m = logits.max(-1).values.detach()
+        se = torch.exp(logits - m[:, None]).sum(-1)
+        lse = m + torch.log(torch.clamp(se, min=1e-30))
+        hit = (lc >= 0) & (lc < V)
+        lab_logit = torch.gather(logits, 1,
+                                 torch.clamp(lc, 0, V - 1)[:, None].long())
+        lab_logit = torch.where(hit, lab_logit[:, 0],
+                                torch.zeros_like(lse))
+        keep = lc >= 0
+        total = total + torch.where(keep, lse - lab_logit,
+                                    torch.zeros_like(lse)).sum()
+        count = count + keep.sum()
+    return total, count
 
 
 def lm_logits_last(cfg: ModelConfig, p, h_last):

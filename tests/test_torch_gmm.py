@@ -183,12 +183,36 @@ def test_equal_function_backward_calls_the_injected_product():
 
 
 def test_ragged_function_backward_raises():
+    """The ragged product's gradient equals ``jax.grad`` of the reference's
+    ``ref`` route, on both of the port's wirings: the plain route (autograd
+    through ``ref.grouped_matmul``) and the kernel's ``autograd.Function``
+    with the plain product injected, whose backward recomputes the plain
+    product. (The name is kept from when the backward raised.)"""
     rng = np.random.default_rng(5)
-    lhs = _t(_rand(rng, (9, 4))).requires_grad_(True)
-    rhs = _t(_rand(rng, (3, 4, 2)))
-    out = gmm_ops.grouped_matmul(lhs, rhs, torch.tensor([4, 0, 5]))
-    with pytest.raises(NotImplementedError, match="ragged"):
-        out.sum().backward()
+    lhs_np, rhs_np = _rand(rng, (9, 4)), _rand(rng, (3, 4, 2))
+    dy_np = _rand(rng, (9, 2))
+    sizes = np.asarray([4, 0, 5], np.int32)
+
+    def jloss(lhs, rhs):
+        out = jgmm_ref.grouped_matmul(lhs, rhs, jnp.asarray(sizes))
+        return (out * dy_np).sum()
+    want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(lhs_np),
+                                           jnp.asarray(rhs_np))
+
+    def product(lhs, rhs, group_sizes):
+        return gmm_ref.grouped_matmul(lhs, rhs, group_sizes)
+    routes = {
+        "plain": lambda a, b, gs: gmm_ops.grouped_matmul(a, b, gs),
+        "function": lambda a, b, gs: gmm_ops.RaggedGroupedMatmul.apply(
+            a, b, gs, product)}
+    for name, route in routes.items():
+        lhs = _t(lhs_np).requires_grad_(True)
+        rhs = _t(rhs_np).requires_grad_(True)
+        out = route(lhs, rhs, torch.from_numpy(sizes))
+        (out * _t(dy_np)).sum().backward()
+        for got, w in zip((lhs.grad, rhs.grad), want):
+            np.testing.assert_allclose(got.numpy(), np.asarray(w), **TOL,
+                                       err_msg=name)
 
 
 def test_group_sizes_of_counts_without_bincount():

@@ -24,6 +24,10 @@ SLICE2 = ["utils/tree.py", "optim/optimizers.py", "envs/base.py",
 # mbrl/dynamics.py and core/workers.py, listed above)
 SLICE3 = ["kernels/imag/ref.py", "kernels/imag/cuda.py", "kernels/imag/ops.py",
           "mbrl/trpo.py", "mbrl/ppo.py", "mbrl/algos.py"]
+# the modules the Mamba2 serving slice adds (it extends models/config.py,
+# models/layers.py, models/lm.py and models/api.py)
+SLICE4 = ["kernels/ssd/ref.py", "kernels/ssd/cuda.py", "kernels/ssd/ops.py",
+          "models/ssm.py", "configs/mamba2_2_7b.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -42,7 +46,7 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("module", SLICE2 + SLICE3)
+@pytest.mark.parametrize("module", SLICE2 + SLICE3 + SLICE4)
 def test_slice_module_is_scanned(module):
     assert PORT / module in FILES
 

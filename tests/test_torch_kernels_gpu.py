@@ -18,6 +18,9 @@ from repro_torch.kernels.gmm import ref as gmm_ref
 from repro_torch.kernels.imag import cuda as imag_cuda
 from repro_torch.kernels.imag import ops as imag_ops
 from repro_torch.kernels.imag import ref as imag_ref
+from repro_torch.kernels.ssd import cuda as ssd_cuda
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 
 # kernel vs plain version, both rounding one f32 result to the output dtype:
 # f32 outputs differ only by the order of f32 sums; bf16 outputs by up to
@@ -165,7 +168,7 @@ def test_gmm_ragged_matches_ref(card, case):
 
 
 @pytest.mark.gpu
-def test_gmm_ragged_select_matches_ref_and_refuses_a_backward(card):
+def test_gmm_ragged_select_matches_ref(card):
     rng = np.random.default_rng(4)
     K, B, dims = 5, 777, (30, 64, 23)
     members = {"w": [_randn(rng, (K, a, b), card)
@@ -177,9 +180,33 @@ def test_gmm_ragged_select_matches_ref_and_refuses_a_backward(card):
     want = gmm_ops.ensemble_mlp(members, x, impl="ref")[
         idx, torch.arange(B, device=card)]
     _gmm_close(got, want)
-    x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ragged"):
-        gmm_ops.ensemble_mlp_select(members, x, idx).sum().backward()
+
+
+@pytest.mark.gpu
+def test_gmm_ragged_function_gradients_match_ref_autograd(card):
+    """Gradients through the ragged kernel's Function (its backward
+    recomputes the plain product) equal autograd of the plain route, and
+    the forward is one counted kernel launch per layer."""
+    rng = np.random.default_rng(8)
+    K, B, dims = 5, 777, (30, 64, 23)
+    ws = [_randn(rng, (K, a, b), card).requires_grad_(True)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [_randn(rng, (K, b), card).requires_grad_(True) for b in dims[1:]]
+    x = _randn(rng, (B, dims[0]), card).requires_grad_(True)
+    idx = torch.from_numpy(rng.integers(0, K - 1, B)).to(card)  # one empty
+    target = _randn(rng, (B, dims[-1]), card)
+    grads = {}
+    for impl in ("cuda", "ref"):
+        before = gmm_ops.ragged_launches
+        out = gmm_ops.ensemble_mlp_select({"w": ws, "b": bs}, x, idx,
+                                          impl=impl)
+        grads[impl] = torch.autograd.grad(((out - target) ** 2).mean(),
+                                          ws + bs + [x])
+        torch.cuda.synchronize()
+        assert gmm_ops.ragged_launches - before == (
+            len(ws) if impl == "cuda" else 0)
+    for got, want in zip(grads["cuda"], grads["ref"]):
+        _gmm_close(got, want)
 
 
 @pytest.mark.gpu
@@ -302,3 +329,95 @@ def test_imag_kernel_refuses_what_it_cannot_run(card):
         imag_cuda.fused_step_sorted(members, norm, pol, s, eps, offs.long())
     with pytest.raises(ValueError, match="fit"):
         imag_cuda.fused_step_sorted(members, norm, pol, s[:, :2], eps, offs)
+
+
+# ssd_chunked vs the plain scan, relative to the output's scale: f32 sums in
+# another order; a bf16 output may round to the neighbouring bf16 value
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+
+SSD_CASES = [
+    # B, L, H, P, N, G, chunk, dtype (test_kernels_interpret.py's and
+    # test_kernels.py's cases, L < chunk, and the Mamba2-2.7B prefill)
+    (2, 256, 4, 32, 16, 1, 64, torch.float32),
+    (1, 100, 8, 16, 32, 2, 32, torch.float32),   # L not a chunk multiple
+    (2, 64, 4, 64, 64, 1, 64, torch.bfloat16),
+    (1, 128, 2, 32, 8, 1, 128, torch.float32),
+    (1, 20, 4, 16, 8, 1, 32, torch.float32),     # L < chunk
+    (4, 1024, 80, 64, 128, 1, 128, torch.bfloat16),
+]
+
+
+def _ssd_inputs(rng, card, B, L, H, P, N, G, dtype, dt_scale=1.0):
+    x = (_randn(rng, (B, L, H, P), card)).to(dtype)
+    dt = torch.nn.functional.softplus(_randn(rng, (B, L, H), card) * 2)
+    A = -torch.exp(_randn(rng, (H,), card) * 0.6)
+    Bm = (_randn(rng, (B, L, G, N), card) * 0.6).to(dtype)
+    C = (_randn(rng, (B, L, G, N), card) * 0.6).to(dtype)
+    return x, dt * dt_scale, A, Bm, C
+
+
+def _ssd_close(got, want, dtype):
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert bool(torch.isfinite(got).all()) and err <= SSD_TOL[dtype] * scale, \
+        (err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_kernel_matches_ref(card, case, with_state):
+    """The kernel against the plain scan, stateless and with a state in and
+    out (dt scaled down so the carried state reaches y), each launch
+    counted."""
+    B, L, H, P, N, G, chunk, dtype = case
+    rng = np.random.default_rng(9)
+    x, dt, A, Bm, C = _ssd_inputs(rng, card, B, L, H, P, N, G, dtype,
+                                  0.05 if with_state else 1.0)
+    kw = {"chunk": chunk}
+    if with_state:
+        kw.update(initial_state=_randn(rng, (B, H, P, N), card),
+                  return_final_state=True)
+    before = ssd_ops.launches
+    got = ssd_ops.ssd(x, dt, A, Bm, C, **kw)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    want = ssd_ref.ssd_chunked(x, dt, A, Bm, C, **kw)
+    if not with_state:
+        got, want = (got,), (want,)
+    assert got[0].dtype == dtype and got[0].shape == x.shape
+    for g, w in zip(got, want):
+        _ssd_close(g, w, dtype)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_is_forward_only(card):
+    rng = np.random.default_rng(10)
+    x, dt, A, Bm, C = _ssd_inputs(rng, card, 1, 64, 4, 32, 16, 1,
+                                  torch.float32)
+    x.requires_grad_(True)
+    y = ssd_ops.ssd(x, dt, A, Bm, C, chunk=32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        y.sum().backward()
+    y = ssd_ops.ssd(x, dt, A, Bm, C, chunk=32, impl="ref")
+    y.sum().backward()      # the plain version differentiates
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_refuses_what_it_cannot_run(card):
+    rng = np.random.default_rng(11)
+    x, dt, A, Bm, C = _ssd_inputs(rng, card, 1, 64, 4, 32, 16, 1,
+                                  torch.float32)
+    with pytest.raises(ValueError, match="chunks"):
+        ssd_cuda.ssd_chunked(x, dt, A, Bm, C, chunk=256)
+    with pytest.raises(ValueError, match="head dims"):
+        ssd_cuda.ssd_chunked(torch.zeros((1, 64, 4, 128), device=card), dt,
+                             A, Bm, C, chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_cuda.ssd_chunked(x.transpose(1, 2).contiguous().transpose(1, 2),
+                             dt, A, Bm, C, chunk=32)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_cuda.ssd_chunked(x, dt.double(), A, Bm, C, chunk=32)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_cuda.ssd_chunked(x, dt, A, Bm, C[:, :32], chunk=32)
