@@ -6,17 +6,24 @@
 Phases, each printing one JSON line:
 
 1. ``device`` / ``build``: the card, then every kernel built from the
-   sources in this checkout (one ``nvcc`` per source, all at once).
+   sources in this checkout (one ``nvcc`` per source, all at once), with
+   the tensor-core (``HMMA``) instructions of each library counted by
+   ``cuobjdump -sass``; the phase fails if ``gmm.cu`` or
+   ``flash_attention.cu`` has none.
 2. ``kernel_check``: the flash-attention kernel against its plain PyTorch
    version on the card at the serving path's shapes and at edge shapes,
    with times of the kernel, the plain version and one PyTorch library
-   call, and the least time the card could take.
+   call (SDPA), the kernel's achieved TFLOP/s, and the least time the card
+   could take. Times are device time per call, from CUDA events around
+   the replay of a CUDA graph of many calls, so the host's launch cost
+   drops out; ``wall_ms`` is the kernel's time per call launched from the
+   host.
 3. ``gmm_check``: the same for the grouped-matmul kernels: ``gmm_equal``
    forward and its two backward products at the model learner's shapes,
-   ``gmm_ragged`` at the assigned predictor's, and both at edge shapes.
-   Their times are device time per call, from CUDA events around the
-   replay of a CUDA graph of many calls, so the host's launch cost drops
-   out.
+   with the tile and contraction split its planner chose, ``gmm_ragged``
+   at the assigned predictor's, and both at edge shapes. Then
+   ``gmm_plan_sweep``: ``gmm_equal`` on every tile and split it takes, at
+   each learner product, beside the planner's choice.
    ``imag_check``: the same for the fused imagination step ``imag_fused``
    at the policy improver's shape (B = 64), at B = 4,096, at MB-MPO's K = 1
    member slice and at edge shapes, with device times by CUDA-graph replay;
@@ -91,6 +98,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense
+# dense TF32 on the tensor cores; an f32-accurate product there takes three
+# TF32 passes (3xTF32), so its least time is 3 * flops at this rate
+TF32_FLOPS = 494.7e12
 HBM_BYTES_PER_S = 3.35e12
 # kernel vs plain attention, both rounding an f32 result once to the output
 # dtype: bf16 outputs may differ by a bf16 ulp or two (7.8e-3 at |o| < 2),
@@ -233,6 +243,8 @@ ATTN_CASES = [
     ("edge_untiled_s100", 1, 100, 100, 4, 2, 128, True, 0, torch.bfloat16),
     ("edge_f32", 2, 128, 128, 4, 2, 64, True, 0, torch.float32),
     ("long_s4096", 1, 4096, 4096, 32, 2, 128, True, 0, torch.bfloat16),
+    ("long_s4096_noncausal", 1, 4096, 4096, 32, 2, 128, False, 0,
+     torch.bfloat16),
 ]
 MAIN_PATH_CASE = "prefill_s64"
 
@@ -280,16 +292,22 @@ def check_attention(fa_ops, fa_ref) -> dict:
         lib_err = (library().transpose(1, 2).float()
                    - want.float()).abs().max().item()
         bound, bound_by = attention_bound_ms(q, k, v, mask)
+
+        def kernel():
+            return fa_ops.attention(q, k, v, impl="cuda", **kw)
+
+        def plain():
+            return fa_ops.attention(q, k, v, impl="ref", **kw)
+        ms = device_ms(kernel)
+        flops = 4.0 * B * Hq * D * int(mask.sum())
         rows[name] = {
             "shape": [B, Sq, Sk, Hq, Hkv, D], "causal": causal,
             "window": window, "dtype": str(dt).replace("torch.", ""),
-            "max_abs_err": err, "atol": ATTN_ATOL[dt],
-            "ms": time_ms(lambda: fa_ops.attention(q, k, v, impl="cuda",
-                                                   **kw)),
-            "plain_ms": time_ms(lambda: fa_ops.attention(q, k, v,
-                                                         impl="ref", **kw)),
-            "library_ms": time_ms(library), "library_max_abs_err": lib_err,
-            "bound_ms": bound, "bound_by": bound_by}
+            "max_abs_err": err, "atol": ATTN_ATOL[dt], "ms": ms,
+            "tflops": flops / ms / 1e9, "plain_ms": device_ms(plain),
+            "library_ms": device_ms(library), "library_max_abs_err": lib_err,
+            "wall_ms": time_ms(kernel), "bound_ms": bound,
+            "bound_by": bound_by}
         emit({"phase": "kernel_check", "kernel": "flash_attention_fwd",
               "case": name, **rows[name]})
     return rows
@@ -354,8 +372,10 @@ def gmm_equal_operands(gen, G, M, K, N, layout):
 
 
 def gmm_bound_ms(flops: float, nbytes: float) -> tuple:
-    """The larger of f32 FLOPs on the CUDA cores and bytes over HBM."""
-    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    """The larger of an f32-accurate product's tensor-core work (three TF32
+    passes at the dense TF32 rate) and bytes over HBM: no f32 kernel on the
+    card can beat both."""
+    t_ops = 3 * flops / TF32_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -386,11 +406,16 @@ def check_gmm(gmm_cuda, gmm_ref) -> dict:
         flops = 2.0 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
         bound, bound_by = gmm_bound_ms(
             flops, _unique_bytes(a) + _unique_bytes(b) + got.numel() * 4)
+        plan = gmm_cuda.plan_equal(a.shape[0], a.shape[1], b.shape[2],
+                                   a.shape[2])
+        ms = device_ms(lambda: gmm_cuda.gmm_equal(a, b))
         rows["equal"][name] = {
             "shape": [G, M, K, N], "layout": layout,
             "product": [list(a.shape), list(b.shape)],
-            "max_abs_err": err, "tol": tol,
-            "ms": device_ms(lambda: gmm_cuda.gmm_equal(a, b)),
+            "plan": {"bm": plan.bm, "bn": plan.bn, "split": plan.split,
+                     "blocks": plan.blocks},
+            "max_abs_err": err, "tol": tol, "ms": ms,
+            "tflops": flops / ms / 1e9,
             "plain_ms": device_ms(lambda: gmm_ref.grouped_matmul(a, b)),
             "library_ms": device_ms(lambda: torch.bmm(a, b)),
             "wall_ms": time_ms(lambda: gmm_cuda.gmm_equal(a, b)),
@@ -430,6 +455,50 @@ def check_gmm(gmm_cuda, gmm_ref) -> dict:
         emit({"phase": "gmm_check", "kernel": "gmm_ragged", "case": name,
               **rows["ragged"][name]})
     return rows
+
+
+def sweep_gmm_plans(gmm_cuda, gmm_ref) -> None:
+    """Every tile and contraction split ``gmm.cu`` takes, at each product
+    the model learner and its validation run: one line per product with
+    the device ms of each, of the planner's choice and of the fastest,
+    each result held to ``GMM_TOL``. It shows how far the planner's rule
+    is from the best plan on this card."""
+    lib = gmm_cuda._library()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, G, M, K, N, layout in GMM_EQUAL_CASES:
+        if name.startswith("edge"):
+            continue
+        a, b = gmm_equal_operands(gen, G, M, K, N, layout)
+        want = gmm_ref.grouped_matmul(a, b)
+        Gp, Mp, Kp, Np = a.shape[0], a.shape[1], a.shape[2], b.shape[2]
+        trans_a, a_gs = gmm_cuda._layout("a", a)
+        trans_b, b_gs = gmm_cuda._layout("b", b)
+        c = torch.empty((Gp, Mp, Np), device="cuda")
+        times = {}
+        for bm, bn in ((64, 64), (64, 32), (32, 64), (32, 32)):
+            for split in range(1, min(gmm_cuda.MAX_SPLIT,
+                                      max(-(-Kp // gmm_cuda.BK), 1)) + 1):
+                def run():
+                    err = lib.gmm_equal(
+                        a.data_ptr(), b.data_ptr(), c.data_ptr(), Gp, Mp, Np,
+                        Kp, trans_a, trans_b, a_gs, b_gs, bm, bn, split,
+                        torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"gmm_equal {bm}x{bn}/{split}: "
+                                           f"error {err}")
+                run()
+                torch.cuda.synchronize()
+                err, tol = _scaled_err(c, want)
+                if not err <= tol:
+                    raise RuntimeError(f"gmm_equal {name} {bm}x{bn}/{split}: "
+                                       f"max abs err {err} > {tol}")
+                times[f"{bm}x{bn}/{split}"] = device_ms(run)
+        plan = gmm_cuda.plan_equal(Gp, Mp, Np, Kp)
+        chosen = f"{plan.bm}x{plan.bn}/{plan.split}"
+        best = min(times, key=times.get)
+        emit({"phase": "gmm_plan_sweep", "case": name, "plan": chosen,
+              "plan_ms": times[chosen], "best": best, "best_ms": times[best],
+              "ms": times})
 
 
 # name, K, B, obs, act, hidden, policy hidden, policy depth, group sizes
@@ -1305,13 +1374,23 @@ def main() -> int:
                ssd_cuda.SOURCE]
     t0 = time.perf_counter()
     built = build.build(sources)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    hmma = {str(src.relative_to(ROOT)): build.count_sass(info["library"],
+                                                         "HMMA")
+            for src, info in built.items()}
+    for src in (fa_cuda.SOURCE, gmm_cuda.SOURCE):
+        if not hmma[str(src.relative_to(ROOT))]:
+            raise RuntimeError(f"{src.name}: no tensor-core (HMMA) "
+                               "instruction in its library")
+    emit({"phase": "build", "seconds": seconds,
           "sources": [str(s.relative_to(ROOT)) for s in sources],
+          "hmma_instructions": hmma,
           "ptxas": [line.strip() for info in built.values()
                     for line in info["log"].splitlines() if "Used" in line]})
 
     rows = check_attention(fa_ops, fa_ref)
     gmm_rows = check_gmm(gmm_cuda, gmm_ref)
+    sweep_gmm_plans(gmm_cuda, gmm_ref)
     imag_rows = check_imag(imag_cuda, imag_ops, imag_ref)
     ssd_rows = check_ssd(ssd_cuda, ssd_ref)
     emit({"phase": "imag_grad_check", **check_imag_grads(imag_ops)})
@@ -1362,7 +1441,8 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"], "shape": MAIN_PATH_CASE}, {
+        "library_ms": main_row["library_ms"], "tflops": main_row["tflops"],
+        "shape": MAIN_PATH_CASE}, {
         "name": "gmm_equal", "route": "cuda",
         "source": str(gmm_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/gmm/pallas.py:47",
@@ -1373,7 +1453,8 @@ def main() -> int:
                            for r in gmm_rows["equal"].values()),
         "ms": eq["ms"], "plain_ms": eq["plain_ms"],
         "bound_ms": eq["bound_ms"], "bound_by": eq["bound_by"],
-        "library_ms": eq["library_ms"], "shape": GMM_EQUAL_MAIN}, {
+        "library_ms": eq["library_ms"], "tflops": eq["tflops"],
+        "shape": GMM_EQUAL_MAIN}, {
         "name": "gmm_ragged", "route": "cuda",
         "source": str(gmm_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/gmm/pallas.py:104",

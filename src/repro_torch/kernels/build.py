@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -35,6 +36,29 @@ def nvcc() -> str:
         raise RuntimeError("nvcc not found: the port's CUDA kernels are "
                            "built on a machine with the CUDA toolkit")
     return path
+
+
+def cuobjdump() -> str:
+    """The toolkit's ``cuobjdump``, beside the ``nvcc`` that builds."""
+    path = Path(nvcc()).parent / "cuobjdump"
+    if not os.access(path, os.X_OK):
+        raise RuntimeError(f"cuobjdump not found beside {nvcc()}")
+    return str(path)
+
+
+# "/*0a50*/  @P0 HMMA.1688.F32.TF32 R4, R8, R12, R4 ;" -> "HMMA.1688..."
+_SASS_OPCODE = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?\w+\s+)?([A-Z][\w.]*)")
+
+
+def count_sass(library: Path, opcode: str) -> int:
+    """How many SASS instructions of a library have an opcode starting
+    with ``opcode`` (as ``HMMA``, a tensor-core product), by
+    ``cuobjdump -sass``."""
+    out = subprocess.run([cuobjdump(), "-sass", str(library)],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    return sum(1 for m in _SASS_OPCODE.finditer(out)
+               if m.group(1).startswith(opcode))
 
 
 def library_path(source: Path) -> Path:

@@ -50,6 +50,10 @@ def _check(q, k, v) -> None:
         if not t.is_contiguous():
             raise ValueError(f"flash_attention kernel: {name} must be "
                              "contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention kernel: bf16 {name} must "
+                             "start 16-byte aligned (its tiles load by "
+                             "16-byte copies)")
     B, Sq, Hq, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} and "

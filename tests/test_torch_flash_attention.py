@@ -127,3 +127,75 @@ def test_kernel_build_is_keyed_by_source_and_needs_nvcc(tmp_path,
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build([src])
     assert list((tmp_path / "out").iterdir()) == []
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's one arithmetic difference: P rounded to bf16 before P V
+
+ATTN_ATOL_BF16 = 2e-2   # chip_smoke.ATTN_ATOL[bf16]: a bf16 ulp or two
+
+
+def _bf16_p_attention(q, k, v, *, causal=True, window=0, block_k=64):
+    """A model of the bf16 kernel on the CPU: f32 scores of bf16 inputs,
+    online softmax over 64-row kv tiles (running max m and sum l of the
+    f32 P), with P rounded to bf16 (round to nearest even, as
+    ``__floats2bfloat162_rn``) before it multiplies V."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    q_idx = torch.arange(Sq) + (Sk - Sq)
+    m = torch.full((B, Hkv, G, Sq), fa_ref.NEG_INF)
+    l = torch.zeros((B, Hkv, G, Sq))
+    o = torch.zeros((B, Hkv, G, Sq, D))
+    for k0 in range(0, Sk, block_k):
+        k_idx = torch.arange(k0, min(k0 + block_k, Sk))
+        kt, vt = k[:, k0:k0 + block_k].float(), v[:, k0:k0 + block_k].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kt) * D ** -0.5
+        mask = fa_ref._mask(q_idx, k_idx, causal, window)
+        s = torch.where(mask, s, torch.full_like(s, fa_ref.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        p16 = p.to(torch.bfloat16).float()
+        o = o * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p16, vt)
+        m = m_new
+    o = o / torch.clamp(l[..., None], min=1e-30)
+    return torch.einsum("bhgqd->bqhgd", o).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def test_sass_opcode_count_reads_predicated_and_plain_lines(monkeypatch):
+    """The build phase's tensor-core count: opcodes of ``cuobjdump -sass``
+    lines, predicated or not, matched by prefix."""
+    from repro_torch.kernels import build
+    sass = """
+        /*0150*/                   HMMA.1688.F32.TF32 R4, R16, R20, R4 ;
+                                                     /* 0x000fe20000000f00 */
+        /*0160*/              @!P0 HMMA.16816.F32.BF16 R8, R16, R20, R8 ;
+        /*0170*/                   FFMA R1, R2, R3, R4 ;
+        /*0180*/                   LDSM.16.M88.4 R12, [R2] ;
+"""
+    monkeypatch.setattr(build, "cuobjdump", lambda: "cuobjdump")
+    monkeypatch.setattr(build.subprocess, "run", lambda *a, **k: type(
+        "Done", (), {"stdout": sass})())
+    assert build.count_sass("lib.so", "HMMA") == 2
+    assert build.count_sass("lib.so", "FFMA") == 1
+    assert build.count_sass("lib.so", "IMMA") == 0
+
+
+@pytest.mark.parametrize("S", [16, 32, 64, 1024])
+def test_bf16_p_stays_within_bf16_atol_of_f32_p(S):
+    """At the serving buckets (GLM-4-9B: 32 q heads, 2 kv heads, D = 128)
+    and at S = 1,024, rounding P to bf16 moves the bf16 output by no more
+    than the tolerance the card holds the kernel to against the plain
+    version, which multiplies f32 P by V widened to f32."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16) for shape in
+        ((1, S, 32, 128), (1, S, 2, 128), (1, S, 2, 128)))
+    got = _bf16_p_attention(q, k, v)
+    want = fa_ref.chunked_attention(q, k, v)
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ATTN_ATOL_BF16, err

@@ -12,6 +12,9 @@ gradient's own scale (each entry sums products over the batch). The
 hand-written CUDA kernels run only on a card: their tests are in
 ``test_torch_kernels_gpu.py``.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -237,3 +240,146 @@ def test_dispatch_keeps_cpu_tensors_off_the_kernel():
                                                   dtype=torch.int32))
     with pytest.raises(ValueError, match="unknown"):
         gmm_ops.grouped_matmul(a, b, impl="triton")
+
+
+# ---------------------------------------------------------------------------
+# gmm_equal on the tensor cores: the 3xTF32 arithmetic and the launch plan
+
+def _chip_smoke():
+    """chip_smoke.py at the repo root, whose cases and tolerances the card
+    is held to (it imports only torch and numpy at the top)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CHIP = _chip_smoke()
+
+
+def _tf32_rna(x):
+    """``cvt.rna.tf32.f32`` by bit arithmetic: round the f32 mantissa to
+    its top 10 bits, to nearest with ties away from zero (adding half an
+    ulp to the magnitude bits, then clearing the low 13)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _product_operands(rng, G, M, K, N, layout):
+    """The logical operands of one ``GMM_EQUAL_CASES`` product, as
+    ``chip_smoke.gmm_equal_operands`` lays them out (values only)."""
+    def rnd(*shape):
+        return (rng.standard_normal(shape) * 0.5).astype(np.float32)
+    if layout == "fwd":
+        return rnd(G, M, K), rnd(G, K, N)
+    if layout == "fwd_bcast":
+        return np.broadcast_to(rnd(M, K), (G, M, K)), rnd(G, K, N)
+    if layout == "dx":
+        return rnd(G, M, N), rnd(G, K, N).transpose(0, 2, 1)
+    if layout == "dw":
+        return rnd(G, M, K).transpose(0, 2, 1), rnd(G, M, N)
+    if layout == "dw_bcast":
+        return (np.broadcast_to(rnd(M, K), (G, M, K)).transpose(0, 2, 1),
+                rnd(G, M, N))
+    raise ValueError(layout)
+
+
+def test_tf32_rounding_model_is_round_to_nearest_ties_away():
+    x = np.array([1.0, 1 + 2 ** -11, 1 + 2 ** -10 + 2 ** -11,
+                  -(1 + 2 ** -11), 1 + 2 ** -12, 3.0], np.float32)
+    want = np.array([1.0, 1 + 2 ** -10, 1 + 2 ** -9, -(1 + 2 ** -10), 1.0,
+                     3.0], np.float32)
+    np.testing.assert_array_equal(_tf32_rna(x), want)
+
+
+@pytest.mark.parametrize("case", CHIP.GMM_EQUAL_CASES,
+                         ids=[c[0] for c in CHIP.GMM_EQUAL_CASES])
+def test_three_tf32_passes_reach_gmm_tol_and_one_pass_does_not(case):
+    """The kernel's arithmetic: each operand split as big = tf32(x), small
+    = tf32(x - big), and small*big + big*small + big*big summed in f32 is
+    within ``GMM_TOL`` of the f64 product, relative to max(1, |C|), at
+    every shape the card checks. One TF32 pass (big*big) is not, so the
+    kernel takes three."""
+    name, G, M, K, N, layout = case
+    rng = np.random.default_rng(6)
+    a, b = _product_operands(rng, G, M, K, N, layout)
+    want = np.matmul(a.astype(np.float64), b.astype(np.float64))
+    a_big, b_big = _tf32_rna(a), _tf32_rna(b)
+    a_small, b_small = _tf32_rna(a - a_big), _tf32_rna(b - b_big)
+    three = (np.matmul(a_small, b_big) + np.matmul(a_big, b_small)
+             + np.matmul(a_big, b_big))
+    one = np.matmul(a_big, b_big)
+    scale = max(1.0, np.abs(want).max())
+    assert np.abs(three - want).max() <= CHIP.GMM_TOL * scale
+    assert np.abs(one - want).max() > CHIP.GMM_TOL * scale
+
+
+def _product_shape(G, M, K, N, layout):
+    """(G, M, N, K) of the product the kernel runs for one case."""
+    if layout in ("fwd", "fwd_bcast"):
+        return G, M, N, K
+    if layout == "dx":
+        return G, M, K, N
+    return G, K, N, M       # dw, dw_bcast: X^T (K, M) x dY (M, N)
+
+
+def _plan_blocks(plan, G, M, N, K):
+    """``(g, m0, n0, k_begin, k_end)`` of every block of ``plan``, decoded
+    from the block index as ``gmm.cu``'s ``gmm_equal_tc`` does: grid
+    (split * tiles, G); block x is rank ``x % split`` of the cluster that
+    owns output tile ``x // split`` (row-major over the tiles) and sums
+    contraction tiles [rank * nk // split, (rank + 1) * nk // split)."""
+    tiles_n = -(-N // plan.bn)
+    tiles = -(-M // plan.bm) * tiles_n
+    nk = -(-K // gmm_cuda.BK)
+    for g in range(G):
+        for x in range(tiles * plan.split):
+            rank, tile = x % plan.split, x // plan.split
+            kt0, kt1 = rank * nk // plan.split, (rank + 1) * nk // plan.split
+            yield (g, (tile // tiles_n) * plan.bm, (tile % tiles_n) * plan.bn,
+                   kt0 * gmm_cuda.BK, min(kt1 * gmm_cuda.BK, K))
+
+
+@pytest.mark.parametrize("case", CHIP.GMM_EQUAL_CASES,
+                         ids=[c[0] for c in CHIP.GMM_EQUAL_CASES])
+def test_equal_plan_covers_every_tile_once_and_splits_k(case):
+    """Every output element is owned by exactly one cluster; a cluster's
+    ranks split the contraction into contiguous, non-empty ranges that
+    cover it; the cluster stays within a portable size (<= 8)."""
+    G, M, N, K = _product_shape(*case[1:])
+    plan = gmm_cuda.plan_equal(G, M, N, K)
+    assert (plan.bm, plan.bn) in ((64, 64), (64, 32), (32, 64), (32, 32))
+    assert 1 <= plan.split <= min(gmm_cuda.MAX_SPLIT, 8)
+    owned = np.zeros((G, M, N), np.int32)
+    ranges = {}
+    blocks = list(_plan_blocks(plan, G, M, N, K))
+    assert len(blocks) == plan.blocks
+    for g, m0, n0, k0, k1 in blocks:
+        assert 0 <= m0 < M and 0 <= n0 < N and 0 <= k0 < k1 <= K
+        ranges.setdefault((g, m0, n0), []).append((k0, k1))
+    for (g, m0, n0), rs in ranges.items():
+        assert len(rs) == plan.split
+        assert rs[0][0] == 0 and rs[-1][1] == K
+        assert all(rs[i][1] == rs[i + 1][0] for i in range(len(rs) - 1))
+        owned[g, m0:m0 + plan.bm, n0:n0 + plan.bn] += 1
+    assert (owned == 1).all()
+
+
+@pytest.mark.parametrize("case", [c for c in CHIP.GMM_EQUAL_CASES
+                                  if c[0].startswith(("train", "val"))],
+                         ids=lambda c: c[0])
+def test_equal_plan_fills_the_card_at_the_learners_shapes(case):
+    """At least one block per SM of the H100 (132) at every product the
+    model learner and its validation run."""
+    plan = gmm_cuda.plan_equal(*_product_shape(*case[1:]))
+    assert plan.blocks >= gmm_cuda.NUM_SMS
+
+
+def test_equal_plan_refuses_what_the_kernel_cannot_launch():
+    with pytest.raises(ValueError, match="groups"):
+        gmm_cuda.plan_equal(70000, 8, 8, 8)
+    with pytest.raises(ValueError, match="negative"):
+        gmm_cuda.plan_equal(1, -1, 8, 8)
+    # K = 0 (an empty contraction) still plans one range per output tile
+    assert gmm_cuda.plan_equal(2, 40, 40, 0).split == 1

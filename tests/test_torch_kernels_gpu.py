@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import cuda as fa_cuda
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gmm import cuda as gmm_cuda
@@ -64,10 +65,75 @@ def test_flash_attention_kernel_matches_ref(card, case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [16, 64, 1024])
+def test_flash_attention_bf16_tensor_core_route_at_serving_lengths(card, S):
+    """The bf16 route (tensor-core tiles, P rounded to bf16) at two
+    serving buckets and a long prompt, GLM-4-9B's heads (32 q, 2 kv, D =
+    128), against the plain version. Rows past S in the 64-row q tile are
+    not written: the output here is the head of a larger buffer whose
+    tail must keep its fill."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card, torch.bfloat16) for shape in
+        ((1, S, 32, 128), (1, S, 2, 128), (1, S, 2, 128)))
+    got = fa_ops.attention(q, k, v)
+    buf = torch.full((1, S + 64, 32, 128), 7.0, device=card,
+                     dtype=torch.bfloat16)
+    assert fa_cuda._library().flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), 1, 1, S, S,
+        32, 2, 128, 128 ** -0.5, 1, 0,
+        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    want = fa_ref.chunked_attention(q, k, v)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=ATOL[torch.bfloat16],
+                               rtol=ATOL[torch.bfloat16])
+    assert torch.equal(buf[:, :S], got)
+    assert bool((buf[:, S:] == 7.0).all())
+
+
+@pytest.mark.gpu
+def test_flash_attention_f32_route_matches_ref(card):
+    """f32 inputs keep the CUDA-core kernel: equal to the plain version up
+    to the order of f32 sums, at a serving bucket and a long prompt."""
+    rng = np.random.default_rng(13)
+    for S in (64, 1024):
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(card) for shape in
+            ((1, S, 8, 128), (1, S, 2, 128), (1, S, 2, 128)))
+        got = fa_ops.attention(q, k, v)
+        torch.cuda.synchronize()
+        want = fa_ref.chunked_attention(q, k, v)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=ATOL[torch.float32],
+                                   rtol=ATOL[torch.float32])
+
+
+@pytest.mark.gpu
 def test_flash_attention_kernel_refuses_unsupported_head_dim(card):
     q = torch.zeros((1, 8, 2, 32), device=card)
     with pytest.raises(ValueError, match="head dims"):
         fa_ops.attention(q, q, q)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_without_falling_back(card):
+    """Inputs the kernel does not take raise, and nothing runs in the
+    kernel's place: the launch count stays."""
+    q = torch.zeros((1, 64, 4, 64), device=card, dtype=torch.bfloat16)
+    # contiguous, but 8 bytes past a 16-byte boundary
+    shifted = torch.zeros(q.numel() + 4, device=card,
+                          dtype=torch.bfloat16)[4:].view(q.shape)
+    before = fa_ops.launches
+    for args in ((q, q[:, :32], q[:, :32]),                  # Sq > Sk
+                 (q, q.float(), q),                          # mixed dtypes
+                 (q.half(), q.half(), q.half()),             # float16
+                 (q.transpose(1, 2).contiguous().transpose(1, 2), q, q),
+                 (shifted, q, q)):
+        with pytest.raises(ValueError):
+            fa_ops.attention(*args, impl="cuda")
+    assert fa_ops.launches == before
 
 
 # gmm kernels vs plain products, f32 both (no TF32): sums in another order,
@@ -151,6 +217,114 @@ def test_gmm_equal_function_gradients_match_ref_autograd(card):
             assert gmm_ops.equal_bwd_launches - b0 == 6
     for got, want in zip(grads["cuda"], grads["ref"]):
         _gmm_close(got, want)
+
+
+# the model learner's products at its widest ensemble (hidden 256, 5
+# members, batch 256; obs 23 + act 7 = 30 inputs) and the validation ring's
+# forward (5,000 rows): G, M, K, N of the forward layer, and which product
+LEARNER_PRODUCTS = [
+    (5, 256, 30, 256, "fwd_bcast"), (5, 256, 256, 256, "fwd"),
+    (5, 256, 256, 23, "fwd"), (5, 256, 30, 256, "dx"),
+    (5, 256, 30, 256, "dw_bcast"), (5, 256, 256, 256, "dx"),
+    (5, 256, 256, 256, "dw"), (5, 256, 256, 23, "dx"),
+    (5, 256, 256, 23, "dw"), (5, 5000, 30, 256, "fwd_bcast"),
+    (5, 5000, 256, 256, "fwd"), (5, 5000, 256, 23, "fwd"),
+]
+
+
+def _learner_operands(rng, card, G, M, K, N, product):
+    x = (_randn(rng, (M, K), card)[None].expand(G, M, K)
+         if product.endswith("bcast") else _randn(rng, (G, M, K), card))
+    w, dy = _randn(rng, (G, K, N), card), _randn(rng, (G, M, N), card)
+    if product.startswith("fwd"):
+        return x, w
+    if product == "dx":
+        return dy, w.transpose(1, 2)
+    return x.transpose(1, 2), dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", LEARNER_PRODUCTS)
+def test_gmm_equal_learner_products_on_their_plans(card, case):
+    """Every product the learner launches, on the tile and contraction
+    split the planner gives it (split-K clusters at M = 256), read in
+    place (transposed, broadcast) and held to GMM_TOL."""
+    rng = np.random.default_rng(14)
+    a, b = _learner_operands(rng, card, *case)
+    plan = gmm_cuda.plan_equal(a.shape[0], a.shape[1], b.shape[2],
+                               a.shape[2])
+    assert plan.blocks >= gmm_cuda.NUM_SMS
+    got = gmm_cuda.gmm_equal(a, b)
+    torch.cuda.synchronize()
+    _gmm_close(got, gmm_ref.grouped_matmul(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [1, 2, 3, 4])
+def test_gmm_equal_every_split_gives_one_result(card, split):
+    """The cluster's fixed-order reduction: any split of the contraction
+    agrees with the plain product, and a launch repeated gives the same
+    bits."""
+    rng = np.random.default_rng(15)
+    a, b = _learner_operands(rng, card, 5, 256, 256, 256, "dw")
+    lib = gmm_cuda._library()
+    ta, ags = gmm_cuda._layout("a", a)
+    tb, bgs = gmm_cuda._layout("b", b)
+    outs = []
+    for _ in range(2):
+        c = torch.empty((5, 256, 256), device=card)
+        assert lib.gmm_equal(a.data_ptr(), b.data_ptr(), c.data_ptr(), 5,
+                             256, 256, 256, ta, tb, ags, bgs, 32, 32, split,
+                             torch.cuda.current_stream().cuda_stream) == 0
+        outs.append(c)
+    torch.cuda.synchronize()
+    _gmm_close(outs[0], gmm_ref.grouped_matmul(a, b))
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+def test_gmm_equal_function_gradients_at_the_learners_widths(card):
+    """EqualGroupedMatmul's forward and both backward products on the
+    planner's split-K tiles: the ensemble MLP's gradients at hidden 256
+    equal autograd of the plain route."""
+    rng = np.random.default_rng(16)
+    K, B, dims = 5, 256, (30, 256, 256, 23)
+    ws = [_randn(rng, (K, a, b), card).mul_(a ** -0.5).requires_grad_(True)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [_randn(rng, (K, b), card).requires_grad_(True) for b in dims[1:]]
+    x = _randn(rng, (B, dims[0]), card).requires_grad_(True)
+    target = _randn(rng, (K, B, dims[-1]), card)
+    grads = {}
+    for impl in ("cuda", "ref"):
+        out = gmm_ops.ensemble_mlp({"w": ws, "b": bs}, x, impl=impl)
+        grads[impl] = torch.autograd.grad(((out - target) ** 2).mean(),
+                                          ws + bs + [x])
+    torch.cuda.synchronize()
+    for got, want in zip(grads["cuda"], grads["ref"]):
+        _gmm_close(got, want)
+
+
+@pytest.mark.gpu
+def test_gmm_equal_refuses_without_falling_back(card):
+    """A plan or a launch the kernel cannot take raises; no other product
+    runs in its place and no launch is counted."""
+    before = (gmm_ops.equal_launches, gmm_ops.equal_bwd_launches)
+    a = torch.zeros((70000, 2, 3), device=card)
+    with pytest.raises(ValueError, match="groups"):
+        gmm_ops.grouped_matmul(a, torch.zeros((70000, 3, 2), device=card),
+                               impl="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        gmm_ops.grouped_matmul(a[:2].half(), a[:2].half().transpose(1, 2),
+                               impl="cuda")
+    assert (gmm_ops.equal_launches, gmm_ops.equal_bwd_launches) == before
+    lib = gmm_cuda._library()
+    x = torch.zeros((1, 64, 64), device=card)
+    stream = torch.cuda.current_stream().cuda_stream
+    for bm, bn, split in ((48, 64, 1), (64, 64, 5), (64, 64, 3)):
+        # a tile gmm.cu does not instantiate; a split past the cluster
+        # limit; more ranges than the 2 contraction tiles of K = 64
+        assert lib.gmm_equal(x.data_ptr(), x.data_ptr(), x.data_ptr(), 1, 64,
+                             64, 64, 0, 0, 0, 0, bm, bn, split, stream) != 0
 
 
 @pytest.mark.gpu
