@@ -8,8 +8,7 @@ Phases, each printing one JSON line:
 1. ``device`` / ``build``: the card, then every kernel built from the
    sources in this checkout (one ``nvcc`` per source, all at once), with
    the tensor-core (``HMMA``) instructions of each library counted by
-   ``cuobjdump -sass``; the phase fails if ``gmm.cu`` or
-   ``flash_attention.cu`` has none.
+   ``cuobjdump -sass``; the phase fails if any of the four has none.
 2. ``kernel_check``: the flash-attention kernel against its plain PyTorch
    version on the card at the serving path's shapes and at edge shapes,
    with times of the kernel, the plain version and one PyTorch library
@@ -26,13 +25,17 @@ Phases, each printing one JSON line:
    each learner product, beside the planner's choice.
    ``imag_check``: the same for the fused imagination step ``imag_fused``
    at the policy improver's shape (B = 64), at B = 4,096, at MB-MPO's K = 1
-   member slice and at edge shapes, with device times by CUDA-graph replay;
+   member slice and at edge shapes, with device times by CUDA-graph replay
+   and the launch plan (rows a tile, blocks a cluster, clusters a member,
+   blocks, shared bytes a block, the last as the kernel lays it out too);
    then first- and second-order gradients through its autograd Function
    against the plain version's autograd.
    ``ssd_check``: the SSD chunked-scan kernel ``ssd_chunked`` against its
    plain version at the Mamba2-2.7B prefill shape (bf16, final state out),
    at the stateless forward's, with a state in and out, and at edge
-   shapes, with device times by CUDA-graph replay.
+   shapes, with device times by CUDA-graph replay and the route's plan
+   (tile, threads, shared bytes and registers a block, blocks an SM by
+   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
 4. ``model_check``: GLM-4-9B at full width, cut to 2 layers; prefill logits
    through the kernel against the same through the plain attention.
 5. ``serve``: ``WorldModelServer`` on the full 40-layer GLM-4-9B with a
@@ -132,8 +135,9 @@ IMAG_TOL = 1e-4
 IMPROVE_STEPS = {"me-trpo": 3, "me-ppo": 2, "mb-mpo": 2}
 POLICY_HIDDEN = 64
 # ssd_chunked vs the plain scan, relative to the output's scale: f32 sums of
-# up to 2·Q products in another order; a bf16 output may round to the
-# neighbouring bf16 value (one ulp, 2^-7 of |y|, at most)
+# up to 2·Q products in another order; the bf16 route also rounds the
+# operands of its tensor-core products to bf16 (3e-3 to 4e-3 of scale in
+# tests/test_torch_ssd.py's model of it) and its output to bf16
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 # Mamba2-2.7B at full width, 2 layers, f32: prefill(S) + decode(token S)
 # against prefill(S + 1) is one function computed chunked and then
@@ -564,6 +568,23 @@ def imag_bound_ms(members, norm, pol, s, eps, idx) -> tuple:
     return gmm_bound_ms(2.0 * B * macs, nbytes)
 
 
+def imag_plan(imag_cuda, members, pol, B) -> dict:
+    """The planner's launch for these widths, with the shared memory that
+    the kernel itself lays out, which must be the planner's."""
+    dims = tuple([members["w"][0].shape[1]]
+                 + [w.shape[2] for w in members["w"]])
+    pdims = tuple([pol["w"][0].shape[0]] + [w.shape[1] for w in pol["w"]])
+    plan = dataclasses.asdict(imag_cuda.plan_step(
+        B, members["w"][0].shape[0], dims, pdims))
+    plan["kernel_smem"] = imag_cuda.kernel_smem_bytes(
+        plan["rows"], plan["cluster"], dims, pdims)
+    if plan["kernel_smem"] != plan["smem"]:
+        raise RuntimeError(f"imag_fused: the planner's shared memory "
+                           f"{plan['smem']} is not the kernel's "
+                           f"{plan['kernel_smem']}")
+    return plan
+
+
 def check_imag(imag_cuda, imag_ops, imag_ref) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = {}
@@ -589,8 +610,9 @@ def check_imag(imag_cuda, imag_ops, imag_ref) -> dict:
             raise RuntimeError(f"imag_fused {name}: max abs errs {errs} > "
                                f"{tol} (finite {finite})")
         bound, bound_by = imag_bound_ms(members, norm, pol, s, eps, idx)
+        plan = imag_plan(imag_cuda, members, pol, B)
         rows[name] = {
-            "shape": [K, B, obs, act, hid, phid, pdepth],
+            "shape": [K, B, obs, act, hid, phid, pdepth], "plan": plan,
             "group_sizes": torch.bincount(idx, minlength=K).tolist(),
             "max_abs_err": max(errs), "max_abs_err_s2_a_pre": errs,
             "tol": tol, "ms": device_ms(kernel), "plain_ms": device_ms(plain),
@@ -1144,7 +1166,8 @@ def check_ssd(ssd_cuda, ssd_ref) -> dict:
             "ms": device_ms(kernel, n=10, reps=3),
             "plain_ms": device_ms(plain, n=3, reps=2),
             "library_ms": None,  # no PyTorch call computes this function
-            "bound_ms": bound, "bound_by": bound_by}
+            "bound_ms": bound, "bound_by": bound_by,
+            "plan": ssd_cuda.plan(dt_)}
         emit({"phase": "ssd_check", "kernel": "ssd_chunked", "case": name,
               **rows[name]})
     return rows
@@ -1378,7 +1401,7 @@ def main() -> int:
     hmma = {str(src.relative_to(ROOT)): build.count_sass(info["library"],
                                                          "HMMA")
             for src, info in built.items()}
-    for src in (fa_cuda.SOURCE, gmm_cuda.SOURCE):
+    for src in sources:
         if not hmma[str(src.relative_to(ROOT))]:
             raise RuntimeError(f"{src.name}: no tensor-core (HMMA) "
                                "instruction in its library")
@@ -1471,7 +1494,8 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in imag_rows.values()),
         "ms": im["ms"], "plain_ms": im["plain_ms"],
         "bound_ms": im["bound_ms"], "bound_by": im["bound_by"],
-        "library_ms": im["library_ms"], "shape": IMAG_MAIN}, {
+        "library_ms": im["library_ms"], "shape": IMAG_MAIN,
+        "plan": im["plan"]}, {
         "name": "ssd_chunked", "route": "cuda",
         "source": str(ssd_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ssd/pallas.py:68",
@@ -1481,7 +1505,8 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows.values()),
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
-        "library_ms": sd["library_ms"], "shape": SSD_MAIN}]})
+        "library_ms": sd["library_ms"], "shape": SSD_MAIN,
+        "plan": sd["plan"]}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

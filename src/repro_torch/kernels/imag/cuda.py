@@ -6,12 +6,19 @@ bounds it and how it is laid out. The library is compiled by
 ``kernels/build.py`` at the first launch, never at import. The function
 launches on the current stream, does not synchronise, and raises on inputs
 the kernel does not take.
+
+:func:`plan_step` picks the launch (rows a tile, blocks a cluster,
+clusters a member) from the shapes alone, in Python, and computes the
+kernel's shared memory as ``imag.cu`` lays it out, so the CPU tests check
+the plan that the card runs.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from pathlib import Path
+from typing import Sequence
 
 import torch
 
@@ -19,6 +26,136 @@ from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "imag.cu"
 MAX_LAYERS = 8
+NUM_SMS = 132                   # H100 SXM
+MAX_CLUSTER = 8                 # the portable cluster size
+MAX_SMEM = 232448               # bytes of shared memory a block may use
+SM_SMEM = 233472                # bytes of shared memory an SM has for blocks
+BLOCK_RESERVED = 1024           # bytes the card keeps for each block
+MAX_MEMBERS = 65535             # the grid's y extent
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round8(x: int) -> int:
+    return (x + 7) // 8 * 8
+
+
+def _stride4(x: int) -> int:
+    """``imag.cu``'s activation row stride: round4(x), plus 4 if that is a
+    multiple of 8."""
+    r = _round4(x)
+    return r if r % 8 else r + 4
+
+
+def _weight_stride(ld: int) -> int:
+    """``imag.cu``'s weight row stride for a tile ``ld`` wide."""
+    return ld if ld % 16 else ld + 8
+
+
+def slice_width(dout: int, cluster: int) -> int:
+    """Columns of a member layer of width ``dout`` that each block of a
+    cluster owns (the last blocks may own fewer, or none): a multiple of
+    8, the width of an mma tile, as ``imag.cu``'s ``fill`` computes it."""
+    return _round8(_cdiv(dout, cluster))
+
+
+def smem_bytes(rows: int, cluster: int, dyn_dims: Sequence[int],
+               pol_dims: Sequence[int]) -> int:
+    """Dynamic shared memory of one block, laid out as ``imag.cu`` lays it
+    out: the whole policy and this block's column slice of every member
+    layer, each ``[round8(din)][stride]`` plus ``[ld]`` of bias; X (rows x
+    obs + act); H0 and H1 (rows x the widest hidden layer's cluster x
+    slice); P0 and P1 (the policy's activations of the own rows, P0 also
+    the last layer's own columns of every row); Pin (the own rows' [s,
+    a]); the partial sums of a split contraction (8 warps x 256 floats).
+    Row strides are padded as ``imag.cu`` pads them."""
+    floats = 0
+    for din, dout in zip(pol_dims[:-1], pol_dims[1:]):
+        ld = _round8(dout)
+        floats += _round8(din) * _weight_stride(ld) + ld
+    lds = [slice_width(d, cluster) for d in dyn_dims[1:]]
+    for din, ld in zip(dyn_dims[:-1], lds):
+        floats += _round8(din) * _weight_stride(ld) + ld
+    sx = _stride4(_round8(dyn_dims[-1] + pol_dims[-1]))
+    sh = _stride4(max([4] + [cluster * ld for ld in lds[:-1]]))
+    sp = _stride4(max(4, *(_round8(d) for d in pol_dims[1:])))
+    own = _cdiv(rows, cluster)
+    floats += (rows * (sx + 2 * sh) + max(own * sp, rows * lds[-1])
+               + own * (sp + sx) + 8 * 2 * 32 * 4)
+    return 4 * floats
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """``imag_fused``'s launch: a member's sorted rows in tiles of
+    ``rows``; each tile taken by a cluster of ``cluster`` blocks, each
+    block owning 1/cluster of every member layer's columns and the policy
+    head of every cluster-th row; ``row_clusters`` clusters a member, the
+    q-th taking tiles q, q + row_clusters, ...; grid (row_clusters x
+    cluster, K), ``blocks`` in all, ``smem`` bytes each."""
+    rows: int
+    cluster: int
+    row_clusters: int
+    blocks: int
+    smem: int
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of 256 threads that fit an SM with ``smem`` bytes of shared
+    memory each."""
+    return max(1, min(8, SM_SMEM // (smem + BLOCK_RESERVED)))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_step(B: int, K: int, dyn_dims: tuple, pol_dims: tuple) -> StepPlan:
+    """Tiles of 16 rows (one mma tile), or 32 when a member's expected share
+    of the batch (B / K) exceeds 64 rows and as many blocks fit an SM. The
+    widest cluster whose shared memory fits and whose grid, one cluster an
+    expected tile, fits the card at once: a small batch spreads each
+    member's weights over up to 8 SMs; a large one takes narrower clusters
+    and more of them. Failing that, the narrowest cluster that fits.
+    Clusters a member to take twice its expected tiles (so a member drawn
+    more often than average is not left to one cluster), no more than one
+    member could use, and no more than fit the card at once. A cluster with
+    no tile of its member exits at once. Raises ValueError when no cluster
+    size fits a block's shared memory or the grid cannot be launched."""
+    if K > MAX_MEMBERS:
+        raise ValueError(f"imag kernel: {K} members, the grid takes at most "
+                         f"{MAX_MEMBERS}")
+    K1 = max(K, 1)
+
+    def rows_for(c):
+        small = smem_bytes(16, c, dyn_dims, pol_dims)
+        if B > 64 * K1 and blocks_per_sm(smem_bytes(
+                32, c, dyn_dims, pol_dims)) == blocks_per_sm(small):
+            return 32
+        return 16
+    fits = [c for c in (1, 2, 4, MAX_CLUSTER)
+            if smem_bytes(rows_for(c), c, dyn_dims, pol_dims) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(
+            f"imag kernel: member widths {list(dyn_dims)} and policy widths "
+            f"{list(pol_dims)} need more than {MAX_SMEM} bytes of shared "
+            f"memory a block even at clusters of {MAX_CLUSTER}")
+
+    def at_once(c):  # blocks of c's plan that the card runs together
+        return blocks_per_sm(smem_bytes(rows_for(c), c, dyn_dims,
+                                        pol_dims)) * NUM_SMS
+    wide = [c for c in fits
+            if K1 * _cdiv(_cdiv(B, K1), rows_for(c)) * c <= at_once(c)]
+    cluster = max(wide) if wide else min(fits)
+    rows = rows_for(cluster)
+    tiles = max(1, _cdiv(_cdiv(B, K1), rows))
+    row_clusters = max(1, min(_cdiv(B, rows), 2 * tiles,
+                              at_once(cluster) // (K1 * cluster)))
+    return StepPlan(rows, cluster, row_clusters, K * row_clusters * cluster,
+                    smem_bytes(rows, cluster, dyn_dims, pol_dims))
 
 
 @functools.cache
@@ -29,11 +166,24 @@ def _library() -> ctypes.CDLL:
     lib.imag_fused_step.argtypes = (
         [ctypes.c_void_p] * 3
         + [ctypes.c_int, ints, ptrs, ptrs] * 2
-        + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.imag_fused_step.restype = ctypes.c_int
+    lib.imag_smem_bytes.argtypes = [ctypes.c_int, ints] * 2 + [ctypes.c_int] * 2
+    lib.imag_smem_bytes.restype = ctypes.c_longlong
     lib.imag_error_string.argtypes = [ctypes.c_int]
     lib.imag_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_smem_bytes(rows: int, cluster: int, dyn_dims: Sequence[int],
+                      pol_dims: Sequence[int]) -> int:
+    """The shared memory that ``imag.cu`` itself lays out for these widths
+    and plan (-1 if it does not take them): what :func:`smem_bytes` must
+    equal."""
+    return _library().imag_smem_bytes(
+        len(pol_dims) - 1, _array(ctypes.c_int, list(pol_dims)),
+        len(dyn_dims) - 1, _array(ctypes.c_int, list(dyn_dims)), rows,
+        cluster)
 
 
 def _check(name: str, t: torch.Tensor, shape, device: torch.device,
@@ -100,6 +250,7 @@ def fused_step_sorted(members, norm, pol, s: torch.Tensor, eps: torch.Tensor,
     for k, n in (("mu_in", obs + act), ("sig_in", obs + act),
                  ("mu_out", obs), ("sig_out", obs)):
         _check(k, norm[k], (n,), dev)
+    plan = plan_step(B, K, tuple(dyn_dims), tuple(pol_dims))
     s2 = torch.empty((B, obs), dtype=torch.float32, device=dev)
     a = torch.empty((B, act), dtype=torch.float32, device=dev)
     pre = torch.empty((B, act), dtype=torch.float32, device=dev)
@@ -118,7 +269,8 @@ def fused_step_sorted(members, norm, pol, s: torch.Tensor, eps: torch.Tensor,
         pol["log_std"].data_ptr(), norm["mu_in"].data_ptr(),
         norm["sig_in"].data_ptr(), norm["mu_out"].data_ptr(),
         norm["sig_out"].data_ptr(), s2.data_ptr(), a.data_ptr(),
-        pre.data_ptr(), B, K, torch.cuda.current_stream(dev).cuda_stream)
+        pre.data_ptr(), B, K, plan.rows, plan.cluster, plan.row_clusters,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("imag_fused_step kernel launch failed: "
                            + lib.imag_error_string(err).decode())

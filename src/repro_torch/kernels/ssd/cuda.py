@@ -2,10 +2,11 @@
 
 ``csrc/ssd.cu`` replaces the TPU kernel
 ``repro/kernels/ssd/pallas.py::ssd_chunked``; its header says what bounds
-it and how it is laid out. The library is compiled by ``kernels/build.py``
-at the first launch, never at import. The function launches on the current
+it and how it is laid out: bf16 inputs run on tensor-core tiles, f32 ones
+on the CUDA cores. The library is compiled by ``kernels/build.py`` at the
+first launch, never at import. The function launches on the current
 stream, does not synchronise, and raises on inputs the kernel does not
-take.
+take. :func:`plan` reports a route's launch as the card sees it.
 """
 from __future__ import annotations
 
@@ -19,9 +20,11 @@ from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 # the largest chunk, head dim and state size the kernel takes (ssd.cu's
-# QM, PM, NM): its shared memory is sized for them
+# QM, PM, NM): a block's tiles are sized for them
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.float32: "f32 FMAs on the CUDA cores",
+          torch.bfloat16: "bf16 mma.sync m16n8k16, f32 accumulate"}
 
 
 @functools.cache
@@ -30,6 +33,8 @@ def _library() -> ctypes.CDLL:
     lib.ssd_chunked_fwd.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.ssd_chunked_fwd.restype = ctypes.c_int
+    lib.ssd_plan.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.ssd_plan.restype = ctypes.c_int
     lib.ssd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_error_string.restype = ctypes.c_char_p
     return lib
@@ -47,6 +52,24 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"ssd kernel: {name} must be contiguous")
+
+
+def plan(dtype: torch.dtype) -> dict:
+    """The launch of ``dtype``'s route on the current card: threads and
+    dynamic shared memory of a block, blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local (spill) bytes a thread, and the (chunk, head dim, state) tile a
+    block owns. One block per (batch, head)."""
+    out = (ctypes.c_int * 5)()
+    lib = _library()
+    err = lib.ssd_plan(_DTYPE_CODES[dtype], out)
+    if err:
+        raise RuntimeError("ssd_plan failed: "
+                           + lib.ssd_error_string(err).decode())
+    return {"route": ROUTES[dtype],
+            "tile": [MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE],
+            "threads": out[0], "smem": out[1], "blocks_per_sm": out[2],
+            "registers": out[3], "local_bytes": out[4]}
 
 
 def ssd_chunked(x, dt, A, B_, C, *, chunk: int = 128, initial_state=None,

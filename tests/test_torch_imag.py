@@ -307,3 +307,77 @@ def test_dispatch_routes_and_refusals():
     offsets = torch.tensor([0, 4, 7, 10], dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         imag_cuda.fused_step_sorted(members, norm, pol, s, eps, offsets)
+
+
+# The kernel's launch plan (imag/cuda.py's plan_step) at chip_smoke.py's
+# IMAG_CASES shapes: K, B, obs, act, hidden, policy hidden, policy depth,
+# group sizes (None: members drawn uniformly, as imagination draws them).
+PLAN_CASES = [
+    (5, 64, 23, 7, 256, 64, 2, None),
+    (5, 4096, 23, 7, 256, 64, 2, None),
+    (1, 64, 23, 7, 256, 64, 2, None),
+    (4, 64, 3, 1, 96, 48, 1, (10, 0, 54, 0)),
+    (3, 48, 3, 1, 96, 48, 1, (0, 48, 0)),
+    (5, 37, 4, 2, 24, 12, 1, (5, 8, 0, 20, 4)),
+    (1, 20, 5, 2, 32, 16, 1, (20,)),
+    (3, 70, 6, 3, 300, 20, 1, None),
+]
+
+
+def _plan_work(plan, offsets, dyn_dims):
+    """What every block of ``plan`` computes, decoded as imag.cu decodes
+    it: grid (row_clusters x cluster, K); cluster q of member g takes the
+    member's tiles q, q + row_clusters, ...; block `rank` runs the policy
+    on the tile rows i with i % cluster == rank and, in member layer l,
+    columns [rank x ld, rank x ld + ld) of dout. Yields ("policy", row) and
+    (l, row, column)."""
+    c = plan.cluster
+    for g in range(len(offsets) - 1):
+        start, end = int(offsets[g]), int(offsets[g + 1])
+        tiles = -(-(end - start) // plan.rows)
+        for q in range(plan.row_clusters):
+            for tile in range(q, tiles, plan.row_clusters):
+                lo = start + tile * plan.rows
+                cnt = min(plan.rows, end - lo)
+                for rank in range(c):
+                    for i in range(rank, cnt, c):
+                        yield ("policy", lo + i)
+                    for l, dout in enumerate(dyn_dims[1:]):
+                        ld = imag_cuda.slice_width(dout, c)
+                        for col in range(rank * ld, min(dout, rank * ld + ld)):
+                            for i in range(cnt):
+                                yield (l, lo + i, col)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_step_plan_computes_every_output_once(case):
+    K, B, obs, act, hid, phid, pdepth, sizes = case
+    dyn_dims = (obs + act, hid, hid, obs)
+    pol_dims = (obs,) + (phid,) * pdepth + (act,)
+    plan = imag_cuda.plan_step(B, K, dyn_dims, pol_dims)
+    assert plan.rows in (16, 32)
+    assert 1 <= plan.cluster <= 8 and plan.row_clusters >= 1
+    # the grid's x extent is whole clusters
+    assert plan.blocks == K * plan.row_clusters * plan.cluster
+    assert plan.smem == imag_cuda.smem_bytes(plan.rows, plan.cluster,
+                                             dyn_dims, pol_dims)
+    assert plan.smem <= 227 * 1024
+    if sizes is None:
+        rng = np.random.default_rng(13)
+        sizes = np.bincount(rng.integers(0, K, B), minlength=K)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    counts = {}
+    for key in _plan_work(plan, offsets, dyn_dims):
+        counts[key] = counts.get(key, 0) + 1
+    want = {("policy", r) for r in range(B)} | {
+        (l, r, col) for l, dout in enumerate(dyn_dims[1:])
+        for r in range(B) for col in range(dout)}
+    assert set(counts) == want
+    assert set(counts.values()) == {1}
+
+
+def test_step_plan_refuses_what_no_cluster_fits():
+    with pytest.raises(ValueError, match="shared memory"):
+        imag_cuda.plan_step(64, 5, (30, 4096, 4096, 23), (23, 64, 7))
+    with pytest.raises(ValueError, match="members"):
+        imag_cuda.plan_step(64, 70000, (30, 256, 23), (23, 64, 7))

@@ -6,6 +6,8 @@ also runs on a card machine that has none:
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu \\
         tests/test_torch_kernels_gpu.py
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -518,6 +520,11 @@ SSD_CASES = [
     (1, 128, 2, 32, 8, 1, 128, torch.float32),
     (1, 20, 4, 16, 8, 1, 32, torch.float32),     # L < chunk
     (4, 1024, 80, 64, 128, 1, 128, torch.bfloat16),
+    # the bf16 tensor-core route at the edges: G = 2 with L not a chunk
+    # multiple, L < chunk, and P, N not multiples of 8 (element loads)
+    (1, 100, 8, 16, 32, 2, 32, torch.bfloat16),
+    (1, 20, 4, 16, 8, 1, 32, torch.bfloat16),
+    (1, 50, 4, 20, 24, 1, 32, torch.bfloat16),
 ]
 
 
@@ -595,3 +602,114 @@ def test_ssd_kernel_refuses_what_it_cannot_run(card):
         ssd_cuda.ssd_chunked(x, dt.double(), A, Bm, C, chunk=32)
     with pytest.raises(ValueError, match="shape"):
         ssd_cuda.ssd_chunked(x, dt, A, Bm, C[:, :32], chunk=32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_repeats_bit_equal(card, dtype):
+    """Each block owns one (batch, head) and sums in a fixed order: two runs
+    on the same inputs give the same bits."""
+    rng = np.random.default_rng(12)
+    x, dt, A, Bm, C = _ssd_inputs(rng, card, 2, 300, 8, 64, 128, 1, dtype,
+                                  0.05)
+    s0 = _randn(rng, (2, 8, 64, 128), card)
+    kw = dict(chunk=128, initial_state=s0, return_final_state=True)
+    y1, f1 = ssd_cuda.ssd_chunked(x, dt, A, Bm, C, **kw)
+    y2, f2 = ssd_cuda.ssd_chunked(x, dt, A, Bm, C, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(f1, f2)
+
+
+@pytest.mark.gpu
+def test_ssd_bf16_route_fits_two_blocks_an_sm(card):
+    plan = ssd_cuda.plan(torch.bfloat16)
+    assert plan["blocks_per_sm"] >= 2 and plan["smem"] <= 113 * 1024
+    assert plan["registers"] <= 128 and plan["threads"] == 256
+    assert ssd_cuda.plan(torch.float32)["blocks_per_sm"] >= 1
+
+
+@pytest.mark.gpu
+def test_ssd_bf16_kernel_refuses_what_it_cannot_run(card):
+    rng = np.random.default_rng(13)
+    x, dt, A, Bm, C = _ssd_inputs(rng, card, 1, 64, 4, 32, 16, 1,
+                                  torch.bfloat16)
+    with pytest.raises(ValueError, match="states up to"):
+        ssd_cuda.ssd_chunked(x, dt, A, Bm.new_zeros((1, 64, 1, 256)),
+                             C.new_zeros((1, 64, 1, 256)), chunk=32)
+    with pytest.raises(ValueError, match="chunks"):
+        ssd_cuda.ssd_chunked(x, dt, A, Bm, C, chunk=0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ssd_cuda.ssd_chunked(x, dt, A, Bm.float(), C, chunk=32)
+
+
+def _imag_widths(members, pol):
+    return (tuple([members["w"][0].shape[1]]
+                  + [w.shape[2] for w in members["w"]]),
+            tuple([pol["w"][0].shape[0]] + [w.shape[1] for w in pol["w"]]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", IMAG_CASES)
+def test_imag_plan_shared_memory_is_the_kernels(card, case):
+    """The planner computes the kernel's shared memory in Python; the
+    kernel's own layout must give the same bytes."""
+    rng = np.random.default_rng(14)
+    members, norm, pol, s, eps, idx = _imag_inputs(rng, card, *case)
+    dims, pdims = _imag_widths(members, pol)
+    plan = imag_cuda.plan_step(case[1], case[0], dims, pdims)
+    assert imag_cuda.kernel_smem_bytes(plan.rows, plan.cluster, dims,
+                                       pdims) == plan.smem
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [IMAG_CASES[0], IMAG_CASES[1]])
+def test_imag_kernel_repeats_bit_equal(card, case):
+    rng = np.random.default_rng(15)
+    members, norm, pol, s, eps, idx = _imag_inputs(rng, card, *case)
+    order, offs = imag_ops.sort_plan(idx, case[0])
+    ss, es = s[order].contiguous(), eps[order].contiguous()
+    first = imag_cuda.fused_step_sorted(members, norm, pol, ss, es, offs)
+    again = imag_cuda.fused_step_sorted(members, norm, pol, ss, es, offs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_imag_kernel_refuses_widths_no_cluster_fits(card):
+    rng = np.random.default_rng(16)
+    members, norm, pol, s, eps, idx = _imag_inputs(rng, card, 2, 16, 3, 1,
+                                                   4096, 8, 1, None)
+    order, offs = imag_ops.sort_plan(idx, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        imag_cuda.fused_step_sorted(members, norm, pol, s[order].contiguous(),
+                                    eps[order].contiguous(), offs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [0, 1])
+@pytest.mark.parametrize("K,B,one_cluster", [(5, 64, False), (2, 200, True)])
+def test_imag_kernel_at_other_member_depths(card, monkeypatch, depth, K, B,
+                                            one_cluster):
+    """Member MLPs of one and two layers (the other cases have three), at
+    the path's widths: one layer has no cluster barrier between layers.
+    With one cluster a member (the planner's choice replaced), each
+    cluster takes all of its member's tiles in turn."""
+    rng = np.random.default_rng(17)
+    members, norm, pol, s, eps, idx = _imag_inputs(rng, card, K, B, 23, 7,
+                                                   256, 64, 2, None)
+    dims = [30] + [256] * depth + [23]
+    members = {"w": [_randn(rng, (K, a, b), card) * a ** -0.5 * 2
+                     for a, b in zip(dims[:-1], dims[1:])],
+               "b": [_randn(rng, (K, b), card) * 0.2 for b in dims[1:]]}
+    if one_cluster:
+        plan = imag_cuda.plan_step(B, K, tuple(dims), (23, 64, 64, 7))
+        assert -(-B // K // plan.rows) > 1
+        monkeypatch.setattr(imag_cuda, "plan_step", lambda *a: replace(
+            plan, row_clusters=1, blocks=K * plan.cluster))
+    got = imag_ops.fused_step(members, norm, pol, s, eps, idx)
+    torch.cuda.synchronize()
+    for g, w in zip(got, imag_ops.fused_step(members, norm, pol, s, eps, idx,
+                                             impl="ref")):
+        scale = max(1.0, w.abs().max().item())
+        assert bool(torch.isfinite(g).all())
+        assert (g - w).abs().max().item() <= IMAG_TOL * scale

@@ -206,3 +206,85 @@ def test_kernel_route_counts_launches_and_refuses_a_backward(monkeypatch):
     assert ssd_ops.launches == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         y.sum().backward()
+
+
+# The bf16 route of the kernel (csrc/ssd.cu, ssd_chunked_bf16) rounds the f32
+# operands of its tensor-core products to bf16 at four points and keeps
+# everything else in f32. This CPU model repeats those points with f32 sums
+# and is held against the JAX oracle within chip_smoke.py's SSD_TOL[bf16],
+# 1.6e-2 of the output's scale, the tolerance the card holds the kernel to.
+# Observed on these inputs (f32 CPU sums): 3.3e-3 to 3.7e-3 of scale for y,
+# 2.5e-4 to 2.7e-3 for the final state.
+SSD_BF16_TOL = 1.6e-2
+BF16_CASES = [
+    # B, L, H, P, N, G, chunk, dt scale, with a state in and out
+    (2, 256, 4, 64, 128, 1, 128, 1.0, False),   # Mamba2-2.7B's P, N, chunk
+    (1, 300, 4, 64, 128, 2, 128, 0.05, True),   # L not a chunk multiple
+    (2, 64, 4, 64, 64, 1, 64, 1.0, True),
+]
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _bf16_route_model(x, dt, A, Bm, C, chunk, s0):
+    """The kernel's bf16 arithmetic: x, B, C enter exact (bf16 values); the
+    masked, decayed C·Bᵀ block with dt folded in, the decay-weighted x of
+    the state update and the state's copy for C·stateᵀ are rounded to bf16;
+    prefix sums, exponentials, the state and every sum stay f32; y is
+    rounded to bf16 once."""
+    Bsz, L, H, P = x.shape
+    rep = H // Bm.shape[2]
+    S = s0.clone()
+    ys = []
+    for c0 in range(0, L, chunk):
+        sl = slice(c0, min(c0 + chunk, L))
+        xc, dtc = x[:, sl], dt[:, sl]                         # (B,Q,H,P)
+        Bc = Bm[:, sl].repeat_interleave(rep, 2)             # (B,Q,H,N)
+        Cc = C[:, sl].repeat_interleave(rep, 2)
+        cum = torch.cumsum(dtc * A, 1)                       # (B,Q,H)
+        Q = cum.shape[1]
+        cb = torch.einsum("bihn,bjhn->bhij", Cc, Bc)
+        cum_h = cum.permute(0, 2, 1)                         # (B,H,Q)
+        mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+        diff = (cum_h[..., :, None] - cum_h[..., None, :]).masked_fill(
+            ~mask, float("-inf"))
+        M = _bf16(cb * torch.exp(diff) * dtc.permute(0, 2, 1)[:, :, None, :])
+        y_diag = torch.einsum("bhij,bjhp->bihp", M, xc)
+        y_off = (torch.einsum("bihn,bhpn->bihp", Cc, _bf16(S))
+                 * torch.exp(cum)[..., None])
+        ys.append(_bf16(y_diag + y_off))
+        w = dtc * torch.exp(cum[:, -1:] - cum)               # (B,Q,H)
+        S = (S * torch.exp(cum[:, -1])[..., None, None]
+             + torch.einsum("bjhp,bjhn->bhpn", _bf16(xc * w[..., None]), Bc))
+    return torch.cat(ys, 1), S
+
+
+def _scaled_err(got, want) -> float:
+    want = np.asarray(want)
+    return float(np.abs(got.detach().numpy() - want).max()
+                 / max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_bf16_route_model_matches_jax_oracle(case):
+    *shape, chunk, dt_scale, with_state = case
+    x, dt, A, Bm, C = _inputs((*shape, chunk), seed=11)
+    dt = dt * np.float32(dt_scale)
+    # the kernel's operands are bf16: both sides see the same values
+    x, Bm, C = (_bf16(torch.from_numpy(a)).numpy() for a in (x, Bm, C))
+    s0 = (_state((*shape, chunk), seed=12) if with_state
+          else np.zeros((shape[0], shape[2], shape[3], shape[4]),
+                        np.float32))
+    y, s = _bf16_route_model(*_t((x, dt, A, Bm, C)), chunk,
+                             torch.from_numpy(s0))
+    jy, js = jssd_ref.ssd_chunked(*_j((x, dt, A, Bm, C)), chunk=chunk,
+                                  initial_state=jnp.asarray(s0),
+                                  return_final_state=True)
+    err_y, err_s = _scaled_err(y, jy), _scaled_err(s, js)
+    assert err_y <= SSD_BF16_TOL and err_s <= SSD_BF16_TOL, (err_y, err_s)
+    # the model does round: the f32 scan of the same inputs differs from it
+    fy = ssd_ref.ssd_chunked(*_t((x, dt, A, Bm, C)), chunk=chunk,
+                             initial_state=torch.from_numpy(s0))
+    assert _scaled_err(y, fy.numpy()) > 1e-4
