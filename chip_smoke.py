@@ -20,9 +20,12 @@ Phases, each printing one JSON line:
 3. ``gmm_check``: the same for the grouped-matmul kernels: ``gmm_equal``
    forward and its two backward products at the model learner's shapes,
    with the tile and contraction split its planner chose, ``gmm_ragged``
-   at the assigned predictor's, and both at edge shapes. Then
+   at the assigned predictor's with its backward products (``dx`` by the
+   same kernel on transposed weights, ``dW`` by ``gmm_ragged_dw``) and
+   ``torch._grouped_mm`` where it takes f32, and both at edge shapes. Then
    ``gmm_plan_sweep``: ``gmm_equal`` on every tile and split it takes, at
-   each learner product, beside the planner's choice.
+   each learner product, beside the planner's choice, and the ragged
+   kernels on every tile (and ``dW`` split) at the assigned layers.
    ``imag_check``: the same for the fused imagination step ``imag_fused``
    at the policy improver's shape (B = 64), at B = 4,096, at MB-MPO's K = 1
    member slice and at edge shapes, with device times by CUDA-graph replay
@@ -54,7 +57,12 @@ Phases, each printing one JSON line:
    more epoch (device time, busy share, kernels per epoch).
 7. ``assigned_predict``: the published ensemble predicts the val ring's
    transitions with sampled members through ``gmm_ragged``, held against
-   the all-member forward's row-selected output.
+   the all-member forward's row-selected output. Then ``assigned_grad``:
+   gradients of a loss of that prediction w.r.t. the inputs and every
+   member weight, first order and through an MB-MPO-style inner step
+   (second order), through the kernels (forward, ``dx`` and ``dW``)
+   against autograd of the plain route; the launches the depth implies;
+   the device time and the peak memory one backward adds.
 8. ``policy_improve``: Algorithm 3, a ``PolicyImprovementWorker`` on the
    ensemble that ``model_learn`` published, at ``AlgoConfig`` defaults (64
    imagined starts, horizon 50, 5 members) with the policy of
@@ -79,18 +87,26 @@ Phases, each printing one JSON line:
 
 Each kernel's launches are counted from 0 just before the phase that
 drives its path (``serve``, ``model_learn``, ``assigned_predict``,
-``policy_improve``, ``ssm_serve``, ``ssm_forward``) and read just after
-it; comparison launches never count. The line before the last
-is the card's name and power limit from ``nvidia-smi``; the last is
+``assigned_grad``, ``policy_improve``, ``ssm_serve``, ``ssm_forward``)
+and read just after it; comparison launches never count. The line before
+the last is the card's name and power limit from ``nvidia-smi``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It imports nothing of JAX and nothing
 of the JAX package ``repro``.
+
+    python3 chip_smoke.py --backward-cost SRC
+
+imports ``repro_torch`` from the directory SRC instead (a checkout's
+``src``, such as a parent commit's) and prints one line: the device time
+and the peak memory of one backward of the assigned predictor at the
+val ring's size, random weights. It serves comparisons between trees.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -124,9 +140,17 @@ GMM_TOL = 1e-4
 # last grant of 10
 LEARN_ENV, LEARN_LANES, LEARN_TRAJS, LEARN_EPOCHS = (
     "pr2_lego_stack", 20, 250, 10)
+# the learner's val ring: every 5th of 250 trajectories, 100 steps each
+VAL_ROWS = 5000
 # predict_assigned vs the all-member forward's selected rows, f32: the
 # same three layers summed in another order by two kernels
 ASSIGNED_ATOL = 1e-4
+# gradients of the assigned predictor's loss, kernel route vs plain
+# autograd, f32 both: the same products summed in another order (dW over
+# a group's ~1,000 rows), relative to each gradient's scale
+ASSIGNED_GRAD_TOL = 1e-4
+# the inner step of the second-order check, as MB-MPO's inner_lr
+INNER_STEP = 0.05
 # imag_fused vs the plain fused step, f32 both (no TF32): six MLP layers
 # summed in another order and CUDA's tanhf/expf against torch's, relative
 # to the outputs' scale; the gradients through the Function likewise
@@ -158,6 +182,26 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(log: str) -> dict:
+    """Registers and spill bytes of each kernel of one library, from
+    ``nvcc -Xptxas -v``'s report (empty when the library was not rebuilt):
+    ``{kernel: [registers, spill store bytes, spill load bytes]}``."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = [int(m.group(1)), *spills]
+            name, spills = None, (0, 0)
+    return out
 
 
 def time_ms(fn, target_ms: float = 200.0) -> float:
@@ -434,31 +478,97 @@ def check_gmm(gmm_cuda, gmm_ref) -> dict:
             gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
         lhs = torch.randn((M, K), generator=gen, device="cuda") * 0.5
         rhs = torch.randn((G, K, N), generator=gen, device="cuda") * 0.5
-        offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"),
-                             torch.cumsum(gs, 0, dtype=torch.int32)])
-        got = gmm_cuda.gmm_ragged(lhs, rhs, offsets)
-        torch.cuda.synchronize()
-        want = gmm_ref.grouped_matmul(lhs, rhs, gs)
-        err, tol = _scaled_err(got, want)
-        if not err <= tol:
-            raise RuntimeError(f"gmm_ragged {name}: max abs err {err} > "
-                               f"{tol}")
-        bound, bound_by = gmm_bound_ms(
-            2.0 * M * K * N, (lhs.numel() + rhs.numel() + got.numel()) * 4)
-        rows["ragged"][name] = {
-            "shape": [G, M, K, N], "group_sizes": gs.tolist(),
-            "max_abs_err": err, "tol": tol,
-            "ms": device_ms(lambda: gmm_cuda.gmm_ragged(lhs, rhs, offsets)),
-            "plain_ms": device_ms(
-                lambda: gmm_ref.grouped_matmul(lhs, rhs, gs)),
-            # torch has no f32 ragged grouped product to call
-            "library_ms": None,
-            "wall_ms": time_ms(lambda: gmm_cuda.gmm_ragged(lhs, rhs,
-                                                           offsets)),
-            "bound_ms": bound, "bound_by": bound_by}
-        emit({"phase": "gmm_check", "kernel": "gmm_ragged", "case": name,
-              **rows["ragged"][name]})
+        dy = torch.randn((M, N), generator=gen, device="cuda") * 0.5
+        offsets = gmm_ref.group_offsets(gs)
+        rows["ragged"][name] = {}
+        for product, row in check_ragged_products(gmm_cuda, gmm_ref, lhs, rhs,
+                                                  dy, gs, offsets):
+            if not row["max_abs_err"] <= row["tol"]:
+                raise RuntimeError(f"gmm_ragged {name} {product}: max abs "
+                                   f"err {row['max_abs_err']} > {row['tol']}")
+            rows["ragged"][name][product] = row
+            emit({"phase": "gmm_check", "kernel": "gmm_ragged", "case": name,
+                  "product": product, "shape": [G, M, K, N],
+                  "group_sizes": gs.tolist(), **row})
     return rows
+
+
+def check_ragged_products(gmm_cuda, gmm_ref, lhs, rhs, dy, gs, offsets):
+    """``gmm_ragged``'s three products on one case: the forward ``lhs x
+    rhs``, ``dx = dy x rhs^T`` (the same kernel, rhs read transposed in
+    place) and ``dW = T(lhs, dy)`` (``gmm_ragged_dw``), each against its
+    plain version, with device times by CUDA-graph replay, the plan, the
+    bound and ``torch._grouped_mm``'s time where it computes the same
+    product in f32 within ``GMM_TOL`` (else None and its reason). Yields
+    (product, row)."""
+    M, K = lhs.shape
+    G, _, N = rhs.shape
+    rhs_t = rhs.transpose(1, 2)
+    ends = offsets[1:].contiguous()
+    used = int((gs > 0).sum())      # the weights a run has to read
+    products = {
+        "fwd": (lambda: gmm_cuda.gmm_ragged(lhs, rhs, offsets),
+                lambda: gmm_ref.grouped_matmul(lhs, rhs, gs),
+                lambda: torch._grouped_mm(lhs, rhs, offs=ends),
+                M * K + used * K * N + M * N,
+                gmm_cuda.plan_ragged(M, N, K)),
+        "dx": (lambda: gmm_cuda.gmm_ragged(dy, rhs_t, offsets),
+               lambda: gmm_ref.grouped_matmul(dy, rhs_t, gs),
+               lambda: torch._grouped_mm(dy, rhs_t, offs=ends),
+               M * N + used * K * N + M * K,
+               gmm_cuda.plan_ragged(M, K, N)),
+        "dw": (lambda: gmm_cuda.gmm_ragged_dw(lhs, dy, offsets),
+               lambda: gmm_ref.ragged_transposed_matmul(lhs, dy, gs),
+               lambda: torch._grouped_mm(lhs.t(), dy, offs=ends),
+               M * K + M * N + G * K * N,
+               gmm_cuda.plan_ragged_dw(G, M, K, N)),
+    }
+    for product, (kernel, plain, library, floats, plan) in products.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        err, tol = _scaled_err(got, want)
+        flops = 2.0 * M * K * N
+        bound, bound_by = gmm_bound_ms(flops, floats * 4)
+        ms = device_ms(kernel)
+        library_ms, library_timing, library_error = grouped_mm_ms(library,
+                                                                  want)
+        yield product, {
+            "plan": dataclasses.asdict(plan), "max_abs_err": err, "tol": tol,
+            "ms": ms, "tflops": flops / ms / 1e9,
+            "plain_ms": device_ms(plain), "library_ms": library_ms,
+            "library_timing": library_timing, "library_error": library_error,
+            "wall_ms": time_ms(kernel), "bound_ms": bound,
+            "bound_by": bound_by}
+
+
+def grouped_mm_ms(library, want) -> tuple:
+    """(ms, how, None) of one ``torch._grouped_mm`` call that computes
+    ``want`` within ``GMM_TOL`` (TF32 is off), or (None, None, why not):
+    the card's torch may refuse f32, or strides that are not multiples of
+    16 bytes. ``how`` is "graph" (device time by CUDA-graph replay, as the
+    kernels') or, where the call cannot be captured because it reads the
+    offsets back to the host, "events" (CUDA events around host-launched
+    calls, as the kernels' ``wall_ms``). The port never calls it; it is
+    the yardstick."""
+    try:
+        got = library()
+        torch.cuda.synchronize()
+    except (AttributeError, NotImplementedError, RuntimeError, TypeError,
+            ValueError) as e:
+        return None, None, f"{type(e).__name__}: {str(e)[:200]}"
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return None, None, f"returned {tuple(got.shape)} {got.dtype}"
+    err, tol = _scaled_err(got, want)
+    if not err <= tol:
+        return None, None, f"max abs err {err} > {tol}"
+    try:
+        return device_ms(library), "graph", None
+    except RuntimeError as e:
+        if "capture" not in str(e):
+            raise
+        torch.cuda.synchronize()
+        return time_ms(library), "events", None
 
 
 def sweep_gmm_plans(gmm_cuda, gmm_ref) -> None:
@@ -503,6 +613,74 @@ def sweep_gmm_plans(gmm_cuda, gmm_ref) -> None:
         emit({"phase": "gmm_plan_sweep", "case": name, "plan": chosen,
               "plan_ms": times[chosen], "best": best, "best_ms": times[best],
               "ms": times})
+
+
+def sweep_ragged_plans(gmm_cuda, gmm_ref) -> None:
+    """The ragged kernels on every tile (and, for ``gmm_ragged_dw``, every
+    split) ``gmm.cu`` takes, at the assigned predictor's three layers: one
+    line per product with the device ms of each, of the planner's choice
+    and of the fastest, each result held to ``GMM_TOL``."""
+    lib = gmm_cuda._library()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name, G, M, K, N, _ in GMM_RAGGED_CASES:
+        if not name.startswith("assign"):
+            continue
+        idx = torch.randint(0, G, (M,), generator=gen, device="cuda")
+        gs = torch.bincount(idx, minlength=G).to(torch.int32)
+        offs = gmm_ref.group_offsets(gs)
+        x = torch.randn((M, K), generator=gen, device="cuda") * 0.5
+        w = torch.randn((G, K, N), generator=gen, device="cuda") * 0.5
+        dy = torch.randn((M, N), generator=gen, device="cuda") * 0.5
+        # product: (output, plain result, launch(bm, bn, split), splits,
+        # the planner's choice)
+        sweeps = {
+            "fwd": (torch.empty((M, N), device="cuda"),
+                    gmm_ref.grouped_matmul(x, w, gs),
+                    lambda out, bm, bn, split: lib.gmm_ragged(
+                        x.data_ptr(), w.data_ptr(), offs.data_ptr(),
+                        out.data_ptr(), G, M, N, K, 0, K * N, bm, bn,
+                        torch.cuda.current_stream().cuda_stream),
+                    [1], gmm_cuda.plan_ragged(M, N, K)),
+            "dx": (torch.empty((M, K), device="cuda"),
+                   gmm_ref.grouped_matmul(dy, w.transpose(1, 2), gs),
+                   lambda out, bm, bn, split: lib.gmm_ragged(
+                       dy.data_ptr(), w.data_ptr(), offs.data_ptr(),
+                       out.data_ptr(), G, M, K, N, 1, K * N, bm, bn,
+                       torch.cuda.current_stream().cuda_stream),
+                   [1], gmm_cuda.plan_ragged(M, K, N)),
+            "dw": (torch.empty((G, K, N), device="cuda"),
+                   gmm_ref.ragged_transposed_matmul(x, dy, gs),
+                   lambda out, bm, bn, split: lib.gmm_ragged_dw(
+                       x.data_ptr(), dy.data_ptr(), offs.data_ptr(),
+                       out.data_ptr(), G, M, K, N, bm, bn, split,
+                       torch.cuda.current_stream().cuda_stream),
+                   range(1, gmm_cuda.MAX_DW_SPLIT + 1),
+                   gmm_cuda.plan_ragged_dw(G, M, K, N)),
+        }
+        for product, (out, want, launch, splits, plan) in sweeps.items():
+            times = {}
+            for bm, bn in gmm_cuda.TILES:
+                for split in splits:
+                    def run():
+                        err = launch(out, bm, bn, split)
+                        if err:
+                            raise RuntimeError(f"gmm_ragged {product} "
+                                               f"{bm}x{bn}/{split}: error "
+                                               f"{err}")
+                    run()
+                    torch.cuda.synchronize()
+                    err, tol = _scaled_err(out, want)
+                    if not err <= tol:
+                        raise RuntimeError(
+                            f"gmm_ragged {name} {product} {bm}x{bn}/{split}:"
+                            f" max abs err {err} > {tol}")
+                    times[f"{bm}x{bn}/{split}"] = device_ms(run)
+            chosen = f"{plan.bm}x{plan.bn}/{getattr(plan, 'split', 1)}"
+            best = min(times, key=times.get)
+            emit({"phase": "gmm_plan_sweep", "kernel": "gmm_ragged",
+                  "case": name, "product": product, "plan": chosen,
+                  "plan_ms": times[chosen], "best": best,
+                  "best_ms": times[best], "ms": times})
 
 
 # name, K, B, obs, act, hidden, policy hidden, policy depth, group sizes
@@ -949,6 +1127,190 @@ def assigned_predict(learner, model_server, gmm_ops) -> dict:
             "ms": time_ms(lambda: DYN.predict_assigned(params, obs, act, idx)),
             "device_ms": device_ms(
                 lambda: DYN.predict_assigned(params, obs, act, idx))}
+
+
+def ragged_launches(gmm_ops) -> tuple:
+    """(forward, dx, dW) launches of the ragged kernels so far."""
+    return (gmm_ops.ragged_launches, gmm_ops.ragged_bwd_launches,
+            gmm_ops.ragged_dw_launches)
+
+
+def expected_ragged_launches(depth: int) -> dict:
+    """(forward, dx, dW) launches of :func:`ragged_grads` at ``depth``
+    layers, all of whose inputs need a gradient. First order: each layer's
+    forward, then its dx and dW. Second order, a dx and a dW a layer in
+    each of four backward passes, after two forwards: the inner loss's
+    backward (dW too: a Function computes what its inputs need, whatever
+    the caller asks for); then the outer gradient through the outer
+    forward, through each inner dx = R(dy, W^T) (whose backward is R(g, W)
+    and T(dy, g)), and through the inner forward, whose activations that
+    dy reads."""
+    return {"first_order": (depth, depth, depth),
+            "second_order": (2 * depth, 4 * depth, 4 * depth)}
+
+
+def ragged_grads(gmm_ops, predict, leaves, target, second_order: bool):
+    """Gradients of ``mean((predict(obs, act, weights) - target) ** 2)``
+    w.r.t. ``leaves = [obs, act, *weights]``, and the (forward, dx, dW)
+    launches they took. ``second_order``: at the inputs moved by one
+    inner gradient step, ``x - INNER_STEP * dl/dx`` with the graph kept,
+    as MB-MPO's inner step, so the gradient runs through the backward."""
+    obs, act, *weights = leaves
+
+    def loss(o, a):
+        return ((predict(o, a, weights) - target) ** 2).mean()
+    before = ragged_launches(gmm_ops)
+    if second_order:
+        g_obs, g_act = torch.autograd.grad(loss(obs, act), (obs, act),
+                                           create_graph=True)
+        out = loss(obs - INNER_STEP * g_obs, act - INNER_STEP * g_act)
+    else:
+        out = loss(obs, act)
+    grads = torch.autograd.grad(out, leaves)
+    return grads, tuple(n - b for n, b in zip(ragged_launches(gmm_ops),
+                                              before))
+
+
+def assigned_predictor(DYN, gmm_ops, params, idx, impl):
+    """``predict(obs, act, weights)``: the kernel route is the user's
+    ``DYN.predict_assigned``; ``impl="ref"`` the same function with the
+    plain ragged product (autograd through its gather)."""
+    norm = params["norm"]
+
+    def predict(obs, act, weights):
+        depth = len(weights) // 2
+        members = {"w": weights[:depth], "b": weights[depth:]}
+        if impl == "cuda":
+            return DYN.predict_assigned({**params, "members": members}, obs,
+                                        act, idx)
+        dyn = gmm_ops.ensemble_mlp_select(
+            members, DYN._normalized_input(params, obs, act), idx, impl=impl)
+        return obs + dyn * norm["sig_out"] + norm["mu_out"]
+    return predict
+
+
+def backward_cost(DYN, params, obs, act, idx) -> dict:
+    """One backward of the assigned predictor's loss w.r.t. the inputs and
+    every member weight, on one retained graph: device ms (the profiler's
+    kernel time), ms a backward by CUDA events over repeats, and the peak
+    memory it adds over what the forward left allocated. Only
+    ``DYN.predict_assigned`` is called, so any tree's package serves."""
+    depth = len(params["members"]["w"])
+    leaves = [obs.detach().clone().requires_grad_(True),
+              act.detach().clone().requires_grad_(True)] + [
+        t.detach().clone().requires_grad_(True)
+        for t in params["members"]["w"] + params["members"]["b"]]
+    members = {"w": leaves[2:2 + depth], "b": leaves[2 + depth:]}
+    pred = DYN.predict_assigned({**params, "members": members}, leaves[0],
+                                leaves[1], idx)
+    loss = ((pred - obs) ** 2).mean()
+
+    def backward():
+        return torch.autograd.grad(loss, leaves, retain_graph=True)
+    backward()
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    backward()
+    torch.cuda.synchronize()
+    peak_added = torch.cuda.max_memory_allocated() - base
+    kernels, wall_ms = profiled(backward)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"rows": obs.shape[0], "depth": depth,
+            "device_ms": sum(by_name.values()), "kernels": len(kernels),
+            "profiled_wall_ms": wall_ms, "ms": time_ms(backward),
+            "peak_added_bytes": peak_added,
+            "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
+
+
+def assigned_grad(learner, model_server, gmm_ops) -> dict:
+    """Gradients through the assigned predictor on the published ensemble,
+    over all of the val ring's rows with sampled members: first order,
+    then through an MB-MPO-style inner step, by the kernels (forward, dx,
+    dW) against autograd of the plain route; the launch counts the depth
+    implies; then the cost of one backward."""
+    from repro_torch.mbrl import dynamics as DYN
+    params, version = model_server.pull()
+    vdata, vsize = learner.buffer.val_view()
+    obs, act = vdata["obs"][:vsize], vdata["act"][:vsize]
+    target = vdata["next_obs"][:vsize]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    idx = DYN.sample_members(params, (vsize,), gen)
+    depth = len(params["members"]["w"])
+    want_launches = expected_ragged_launches(depth)
+
+    def leaves():
+        return [t.detach().clone().requires_grad_(True) for t in
+                [obs, act] + params["members"]["w"] + params["members"]["b"]]
+    gmm_ops.ragged_launches = gmm_ops.ragged_bwd_launches = 0
+    gmm_ops.ragged_dw_launches = 0
+    out, launches = {}, {}
+    for key, second in (("first_order", False), ("second_order", True)):
+        grads = {}
+        for impl in ("cuda", "ref"):
+            predict = assigned_predictor(DYN, gmm_ops, params, idx, impl)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads[impl], n = ragged_grads(gmm_ops, predict, leaves(), target,
+                                          second)
+            torch.cuda.synchronize()
+            if impl == "cuda":
+                launches[key] = n
+                wall = (time.perf_counter() - t0) * 1e3
+        errs = [((g - w).abs().max().item(),
+                 ASSIGNED_GRAD_TOL * max(1.0, w.abs().max().item()))
+                for g, w in zip(grads["cuda"], grads["ref"])]
+        out[key] = {"max_abs_err": max(e for e, _ in errs),
+                    "worst_err_over_tol": max(e / t for e, t in errs),
+                    "launches": launches[key], "wall_ms": wall,
+                    "finite": all(bool(torch.isfinite(g).all())
+                                  for g in grads["cuda"])}
+    totals = ragged_launches(gmm_ops)
+    checks = {
+        "first-order gradients match the plain route":
+            out["first_order"]["worst_err_over_tol"] <= 1.0,
+        "second-order gradients match the plain route":
+            out["second_order"]["worst_err_over_tol"] <= 1.0,
+        "finite": all(o["finite"] for o in out.values()),
+        "forward, dx and dW launches as the depth implies":
+            all(launches[k] == want_launches[k] for k in launches),
+        "no launch outside the two gradients":
+            totals == tuple(map(sum, zip(*launches.values()))),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"assigned_grad failed: {failed}; {out}, "
+                           f"expected launches {want_launches}")
+    return {"rows": vsize, "model_version": version, "depth": depth,
+            "inner_step": INNER_STEP, "tol": ASSIGNED_GRAD_TOL, **out,
+            "expected_launches": want_launches,
+            "gmm_ragged_launches": sum(totals),
+            "gmm_ragged_launches_fwd": totals[0],
+            "gmm_ragged_launches_bwd": totals[1],
+            "gmm_ragged_launches_dw": totals[2],
+            "backward": backward_cost(DYN, params, obs, act, idx)}
+
+
+def backward_cost_of_tree(src: str) -> dict:
+    """:func:`backward_cost` with ``repro_torch`` imported from ``src``, at
+    the val ring's 5,000 rows and ``EnsembleConfig``'s widths on
+    ``pr2_lego_stack`` (obs 23, act 7), random weights and inputs."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.mbrl import dynamics as DYN
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cfg = DYN.EnsembleConfig(23, 7)
+    params = DYN.init_ensemble(cfg, gen)
+    rows = VAL_ROWS
+    obs = torch.randn((rows, cfg.obs_dim), generator=gen, device="cuda")
+    act = torch.randn((rows, cfg.act_dim), generator=gen, device="cuda")
+    idx = DYN.sample_members(params, (rows,), gen)
+    return {"src": src, "module": DYN.__file__,
+            **backward_cost(DYN, params, obs, act, idx)}
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1408,12 +1770,15 @@ def main() -> int:
     emit({"phase": "build", "seconds": seconds,
           "sources": [str(s.relative_to(ROOT)) for s in sources],
           "hmma_instructions": hmma,
+          "registers": {str(src.relative_to(ROOT)): ptxas_kernels(info["log"])
+                        for src, info in built.items()},
           "ptxas": [line.strip() for info in built.values()
                     for line in info["log"].splitlines() if "Used" in line]})
 
     rows = check_attention(fa_ops, fa_ref)
     gmm_rows = check_gmm(gmm_cuda, gmm_ref)
     sweep_gmm_plans(gmm_cuda, gmm_ref)
+    sweep_ragged_plans(gmm_cuda, gmm_ref)
     imag_rows = check_imag(imag_cuda, imag_ops, imag_ref)
     ssd_rows = check_ssd(ssd_cuda, ssd_ref)
     emit({"phase": "imag_grad_check", **check_imag_grads(imag_ops)})
@@ -1430,6 +1795,8 @@ def main() -> int:
     emit({"phase": "epoch_profile", **profile_epoch(learner)})
     assigned = assigned_predict(learner, model_server, gmm_ops)
     emit({"phase": "assigned_predict", **assigned})
+    grad = assigned_grad(learner, model_server, gmm_ops)
+    emit({"phase": "assigned_grad", **grad})
     worker, improved = policy_improve(model_server, imag_ops)
     emit({"phase": "policy_improve", **improved})
     emit({"phase": "improve_profile", **profile_improve(worker)})
@@ -1481,12 +1848,22 @@ def main() -> int:
         "name": "gmm_ragged", "route": "cuda",
         "source": str(gmm_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/gmm/pallas.py:104",
-        "launches": assigned["gmm_ragged_launches"],
+        "launches": assigned["gmm_ragged_launches"]
+            + grad["gmm_ragged_launches"],
+        "launches_fwd": assigned["gmm_ragged_launches"]
+            + grad["gmm_ragged_launches_fwd"],
+        "launches_bwd": grad["gmm_ragged_launches_bwd"],
+        "launches_dw": grad["gmm_ragged_launches_dw"],
         "max_abs_err": max(r["max_abs_err"]
-                           for r in gmm_rows["ragged"].values()),
-        "ms": rg["ms"], "plain_ms": rg["plain_ms"],
-        "bound_ms": rg["bound_ms"], "bound_by": rg["bound_by"],
-        "library_ms": rg["library_ms"], "shape": GMM_RAGGED_MAIN}, {
+                           for case in gmm_rows["ragged"].values()
+                           for r in case.values()),
+        "ms": rg["fwd"]["ms"], "plain_ms": rg["fwd"]["plain_ms"],
+        "bound_ms": rg["fwd"]["bound_ms"], "bound_by": rg["fwd"]["bound_by"],
+        "library_ms": rg["fwd"]["library_ms"], "tflops": rg["fwd"]["tflops"],
+        "dx_ms": rg["dx"]["ms"], "dx_bound_ms": rg["dx"]["bound_ms"],
+        "dw_ms": rg["dw"]["ms"], "dw_bound_ms": rg["dw"]["bound_ms"],
+        "dw_library_ms": rg["dw"]["library_ms"],
+        "shape": GMM_RAGGED_MAIN}, {
         "name": "imag_fused", "route": "cuda",
         "source": str(imag_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/imag/pallas.py:97",
@@ -1514,5 +1891,21 @@ def main() -> int:
     return 0
 
 
+def main_backward_cost(src: str) -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to measure",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "assigned_backward_cost", "nvidia_smi": nvidia_smi(),
+          **backward_cost_of_tree(src)})
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--backward-cost":
+        sys.exit(main_backward_cost(sys.argv[2]))
+    if len(sys.argv) > 1:
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

@@ -9,25 +9,35 @@ the caller names ``impl="ref"``, as the on-card comparison does.
 
 Gradients. The reference has no backward rule of its own for either
 kernel (``kernels/gmm/`` holds no ``custom_vjp``); its gradient is autodiff
-of the plain products, which this reproduces:
+of the plain products, to any order (MB-MPO's inner step differentiates
+a gradient again). The port reproduces that with Functions whose backward
+is built from Functions, each taking its products as a parameter, so the
+CPU can run the card's wiring with the plain products injected:
 
-* equal: both routes run inside a ``torch.autograd.Function`` that takes
-  the grouped product as a parameter, so the CPU runs the same backward
-  wiring with the plain product that the card runs with the kernel. The
-  backward is the same kernel on transposed operands, ``dX = dY x W^T``
-  and ``dW = X^T x dY``, each only when autograd asks for it.
-* ragged: the plain route calls ``ref.grouped_matmul`` directly, so
-  autograd runs through its gather as ``jax.grad`` runs through the
-  reference's ``ref`` route. The kernel route runs inside
-  ``RaggedGroupedMatmul``, whose backward recomputes the plain product on
-  its saved inputs and returns autograd's vector-Jacobian product of it
-  (the pattern of ``imag/ops.py``'s ``FusedStep``), until the ragged
-  kernel has a backward kernel of its own.
+* equal: ``EqualGroupedMatmul`` (both routes). Its backward is the same
+  Function on transposed views, ``dX = dY x W^T`` and ``dW = X^T x dY``.
+* ragged, kernel route: ``RaggedGroupedMatmul`` R, ``y = R(x, W)`` (row m
+  of group g times ``W[g]``), and ``RaggedTransposedMatmul`` T,
+  ``T(a, b)[g] = a[rows of g]^T x b[rows of g]``. R's backward is
+  ``dx = R(dy, W^T)`` (the weights read transposed in place) and
+  ``dW = T(x, dy)``; T's is ``da = R(b, dZ^T)`` and ``db = R(a, dZ)``. So
+  the two are closed under differentiation.
+* ragged, plain route: autograd through ``ref.grouped_matmul``'s gather,
+  as ``jax.grad`` runs through the reference's ``ref`` route. It is the
+  independent yardstick the card holds the Functions to.
 
-The counters count kernel launches made here, the equal kernel's forward
-and backward apart, so a run can show that its path went through them.
+Each backward computes only the operands ``needs_input_grad`` asks for.
+Offsets stay on the device and no size is read on the host.
+
+The counters count kernel launches made here, so a run can show that its
+path went through them: the equal kernel's forward and backward products
+apart, and the ragged kernel's forward products, its products inside a
+backward (``dx``, and T's backward), and ``gmm_ragged_dw`` (``dW``).
 """
 from __future__ import annotations
+
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -35,7 +45,9 @@ from repro_torch.kernels.gmm import cuda, ref
 
 equal_launches = 0        # gmm_equal, forward products
 equal_bwd_launches = 0    # gmm_equal, backward products (dX and dW)
-ragged_launches = 0       # gmm_ragged
+ragged_launches = 0       # gmm_ragged, forward products
+ragged_bwd_launches = 0   # gmm_ragged inside a backward (dx)
+ragged_dw_launches = 0    # gmm_ragged_dw (dW)
 
 
 def _kernel_equal(a, b, backward: bool = False):
@@ -52,20 +64,55 @@ def _ref_equal(a, b, backward: bool = False):
     return ref.grouped_matmul(a, b)
 
 
-def _kernel_ragged(lhs, rhs, group_sizes):
-    global ragged_launches
-    # (G + 1,) row offsets, computed on the device: no host sync
-    offsets = torch.cat([
-        torch.zeros(1, dtype=torch.int32, device=lhs.device),
-        torch.cumsum(group_sizes, 0, dtype=torch.int32)])
-    out = cuda.gmm_ragged(lhs.contiguous(), rhs.contiguous(), offsets)
-    ragged_launches += 1
+def _kernel_ragged(lhs, rhs, offsets, backward: bool = False):
+    global ragged_launches, ragged_bwd_launches
+    # rhs may be a transposed view: the kernel reads it in place
+    out = cuda.gmm_ragged(lhs.contiguous(), rhs, offsets)
+    if backward:
+        ragged_bwd_launches += 1
+    else:
+        ragged_launches += 1
     return out
+
+
+def _kernel_ragged_t(a, b, offsets):
+    global ragged_dw_launches
+    out = cuda.gmm_ragged_dw(a.contiguous(), b.contiguous(), offsets)
+    ragged_dw_launches += 1
+    return out
+
+
+def _ref_ragged(lhs, rhs, group_sizes, backward: bool = False):
+    return ref.grouped_matmul(lhs, rhs, group_sizes)
+
+
+def _ref_ragged_t(a, b, group_sizes):
+    return ref.ragged_transposed_matmul(a, b, group_sizes)
+
+
+class RaggedProducts(NamedTuple):
+    """The two ragged products a route runs, each given ``groups``: the
+    (G + 1,) offsets for the kernels, the (G,) sizes for the plain ones.
+
+    ``matmul(lhs (M, K), rhs (G, K, N), groups, backward=False)`` -> (M, N);
+    ``rhs`` may be a transposed view. ``matmul_t(a (M, K), b (M, N),
+    groups)`` -> (G, K, N)."""
+    matmul: Callable
+    matmul_t: Callable
+
+    def in_backward(self) -> "RaggedProducts":
+        return self._replace(
+            matmul=functools.partial(self.matmul, backward=True))
+
+
+KERNEL_RAGGED = RaggedProducts(_kernel_ragged, _kernel_ragged_t)
+PLAIN_RAGGED = RaggedProducts(_ref_ragged, _ref_ragged_t)
 
 
 class EqualGroupedMatmul(torch.autograd.Function):
     """lhs (G, M, K) x rhs (G, K, N) through ``product(a, b, backward)``,
-    with the backward as two more grouped products."""
+    with the backward as two more of these Functions, on transposed views
+    and with ``backward=True`` bound."""
 
     @staticmethod
     def forward(ctx, lhs, rhs, product):
@@ -77,36 +124,65 @@ class EqualGroupedMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         lhs, rhs = ctx.saved_tensors
         dy = dy.contiguous()
+        product = functools.partial(ctx.product, backward=True)
         d_lhs = d_rhs = None
         if ctx.needs_input_grad[0]:
-            d_lhs = ctx.product(dy, rhs.transpose(1, 2), backward=True)
+            d_lhs = EqualGroupedMatmul.apply(dy, rhs.transpose(1, 2),
+                                             product)
         if ctx.needs_input_grad[1]:
-            d_rhs = ctx.product(lhs.transpose(1, 2), dy, backward=True)
+            d_rhs = EqualGroupedMatmul.apply(lhs.transpose(1, 2), dy,
+                                             product)
         return d_lhs, d_rhs, None
 
 
 class RaggedGroupedMatmul(torch.autograd.Function):
-    """Ragged lhs (M, K) x rhs (G, K, N) through ``product``, with
-    autograd of the plain ``ref.grouped_matmul`` as the backward."""
+    """R: ragged lhs (M, K) x rhs (G, K, N) -> (M, N) through
+    ``products.matmul``; backward ``dx = R(dy, rhs^T)``, ``dW = T(lhs,
+    dy)``."""
 
     @staticmethod
-    def forward(ctx, lhs, rhs, group_sizes, product):
-        ctx.save_for_backward(lhs, rhs, group_sizes)
-        return product(lhs, rhs, group_sizes)
+    def forward(ctx, lhs, rhs, groups, products):
+        ctx.products = products
+        ctx.save_for_backward(lhs, rhs, groups)
+        return products.matmul(lhs, rhs, groups)
 
     @staticmethod
     def backward(ctx, dy):
-        lhs, rhs, group_sizes = ctx.saved_tensors
-        need = ctx.needs_input_grad[:2]
-        with torch.enable_grad():
-            # recompute on detached aliases of the inputs (no copy), so the
-            # gradient stops at them
-            leaves = [t.detach().requires_grad_(n)
-                      for t, n in zip((lhs, rhs), need)]
-            out = ref.grouped_matmul(*leaves, group_sizes)
-            grads = iter(torch.autograd.grad(
-                out, [t for t, n in zip(leaves, need) if n], dy))
-        return tuple(next(grads) if n else None for n in need) + (None, None)
+        lhs, rhs, groups = ctx.saved_tensors
+        dy = dy.contiguous()
+        products = ctx.products.in_backward()
+        d_lhs = d_rhs = None
+        if ctx.needs_input_grad[0]:
+            d_lhs = RaggedGroupedMatmul.apply(dy, rhs.transpose(1, 2),
+                                              groups, products)
+        if ctx.needs_input_grad[1]:
+            d_rhs = RaggedTransposedMatmul.apply(lhs, dy, groups, products)
+        return d_lhs, d_rhs, None, None
+
+
+class RaggedTransposedMatmul(torch.autograd.Function):
+    """T: a (M, K), b (M, N) -> (G, K, N), ``out[g] = a[rows of g]^T x
+    b[rows of g]``, through ``products.matmul_t``; backward ``da = R(b,
+    dZ^T)``, ``db = R(a, dZ)``."""
+
+    @staticmethod
+    def forward(ctx, a, b, groups, products):
+        ctx.products = products
+        ctx.save_for_backward(a, b, groups)
+        return products.matmul_t(a, b, groups)
+
+    @staticmethod
+    def backward(ctx, dz):
+        a, b, groups = ctx.saved_tensors
+        dz = dz.contiguous()
+        products = ctx.products.in_backward()
+        d_a = d_b = None
+        if ctx.needs_input_grad[0]:
+            d_a = RaggedGroupedMatmul.apply(b, dz.transpose(1, 2), groups,
+                                            products)
+        if ctx.needs_input_grad[1]:
+            d_b = RaggedGroupedMatmul.apply(a, dz, groups, products)
+        return d_a, d_b, None, None
 
 
 def _use_kernel(t: torch.Tensor, impl) -> bool:
@@ -129,7 +205,8 @@ def grouped_matmul(lhs, rhs, group_sizes=None, *, impl: str | None = None):
             lhs, rhs, _kernel_equal if kernel else _ref_equal)
     if not kernel:
         return ref.grouped_matmul(lhs, rhs, group_sizes)
-    return RaggedGroupedMatmul.apply(lhs, rhs, group_sizes, _kernel_ragged)
+    return RaggedGroupedMatmul.apply(lhs, rhs, ref.group_offsets(group_sizes),
+                                     KERNEL_RAGGED)
 
 
 def ensemble_mlp(members, x, *, impl: str | None = None):

@@ -12,6 +12,11 @@ contracts.
     each row is evaluated by exactly ONE assigned member (sort rows by
     member, ragged grouped MLP forward, unsort).
 
+and one the reference has no name for: ``ragged_transposed_matmul``, the
+per-group product ``a[rows of g]^T x b[rows of g]``, which is the ragged
+product's gradient with respect to its weights (``gmm_ragged_dw`` on the
+card).
+
 This is the kernels' plain version: the CPU runs it, the tests hold it
 against the JAX oracle, and ``chip_smoke.py`` holds the kernels against
 it on the card. Like the oracle, the ragged product materialises the
@@ -39,6 +44,14 @@ def group_sizes_of(idx: torch.Tensor, n_groups: int) -> torch.Tensor:
     return (idx[None, :] == groups[:, None]).sum(1, dtype=torch.int32)
 
 
+def group_offsets(group_sizes: torch.Tensor) -> torch.Tensor:
+    """(G + 1,) int32 row offsets of the groups, ``offsets[g]`` the first
+    row of group g, computed on the sizes' device: no host sync."""
+    return torch.cat([
+        torch.zeros(1, dtype=torch.int32, device=group_sizes.device),
+        torch.cumsum(group_sizes, 0, dtype=torch.int32)])
+
+
 def grouped_matmul(lhs, rhs, group_sizes=None):
     """Equal-group: lhs (G, M, K) x rhs (G, K, N) -> (G, M, N).
     Ragged (``group_sizes`` given): lhs (M, K) sorted by group x
@@ -47,6 +60,19 @@ def grouped_matmul(lhs, rhs, group_sizes=None):
         return torch.matmul(lhs, rhs)
     gid = group_ids(group_sizes, lhs.shape[0])
     return torch.einsum("mk,mkn->mn", lhs, rhs[gid])
+
+
+def ragged_transposed_matmul(a, b, group_sizes):
+    """a (M, K) and b (M, N), rows sorted by group -> (G, K, N) with
+    ``out[g] = a[rows of g]^T x b[rows of g]``; an empty group gives
+    zeros. It is the gradient of ``sum(b * grouped_matmul(a, w, sizes))``
+    with respect to ``w``, so rows beyond ``sum(group_sizes)`` count in the
+    last group, as they do there. A row's one-hot group mask selects its
+    rows without reading the sizes on the host."""
+    G = group_sizes.shape[0]
+    gid = group_ids(group_sizes, a.shape[0])
+    onehot = (gid[:, None] == torch.arange(G, device=gid.device)).to(a.dtype)
+    return torch.einsum("mg,mk,mn->gkn", onehot, a, b)
 
 
 def ensemble_mlp(members, x, *, matmul=grouped_matmul):

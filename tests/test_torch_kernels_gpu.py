@@ -360,9 +360,10 @@ def test_gmm_ragged_select_matches_ref(card):
 
 @pytest.mark.gpu
 def test_gmm_ragged_function_gradients_match_ref_autograd(card):
-    """Gradients through the ragged kernel's Function (its backward
-    recomputes the plain product) equal autograd of the plain route, and
-    the forward is one counted kernel launch per layer."""
+    """Gradients through the ragged kernel's Function (its backward is the
+    dx kernel and gmm_ragged_dw) equal autograd of the plain route, and
+    each product is one counted kernel launch: per layer one forward, one
+    dx and one dW."""
     rng = np.random.default_rng(8)
     K, B, dims = 5, 777, (30, 64, 23)
     ws = [_randn(rng, (K, a, b), card).requires_grad_(True)
@@ -373,16 +374,171 @@ def test_gmm_ragged_function_gradients_match_ref_autograd(card):
     target = _randn(rng, (B, dims[-1]), card)
     grads = {}
     for impl in ("cuda", "ref"):
-        before = gmm_ops.ragged_launches
+        before = _ragged_counts()
         out = gmm_ops.ensemble_mlp_select({"w": ws, "b": bs}, x, idx,
                                           impl=impl)
         grads[impl] = torch.autograd.grad(((out - target) ** 2).mean(),
                                           ws + bs + [x])
         torch.cuda.synchronize()
-        assert gmm_ops.ragged_launches - before == (
-            len(ws) if impl == "cuda" else 0)
+        n = len(ws) if impl == "cuda" else 0
+        assert _ragged_delta(before) == (n, n, n)
     for got, want in zip(grads["cuda"], grads["ref"]):
         _gmm_close(got, want)
+
+
+def _ragged_counts():
+    return (gmm_ops.ragged_launches, gmm_ops.ragged_bwd_launches,
+            gmm_ops.ragged_dw_launches)
+
+
+def _ragged_delta(before):
+    return tuple(a - b for a, b in zip(_ragged_counts(), before))
+
+
+# the assigned predictor's layers at the val ring's 5,000 rows, then the
+# edge shapes: G, M, K, N, group sizes
+GMM_RAGGED_PRODUCT_CASES = [
+    (5, 5000, 30, 256, (1013, 987, 1002, 995, 1003)),
+    (5, 5000, 256, 256, (1013, 987, 1002, 995, 1003)),
+    (5, 5000, 256, 23, (1013, 987, 1002, 995, 1003)),
+    (5, 5000, 256, 256, (0, 2500, 0, 2500, 0)),       # empty groups
+] + GMM_RAGGED_CASES[:5]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GMM_RAGGED_PRODUCT_CASES)
+def test_gmm_ragged_forward_dx_and_dw_match_ref(card, case):
+    """The three products of the ragged layer on their plans: the forward,
+    dx = dy x W^T (W read transposed in place) and dW = T(x, dy), each
+    against its plain version; an empty group's dW is zeros. The edge
+    cases hold a 32 x 32 tile that straddles three groups (5, 8, 0, 20)."""
+    G, M, K, N, sizes = case
+    rng = np.random.default_rng(17)
+    x, w = _randn(rng, (M, K), card), _randn(rng, (G, K, N), card)
+    dy = _randn(rng, (M, N), card)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=card)
+    offsets = gmm_ref.group_offsets(gs)
+    out = gmm_cuda.gmm_ragged(x, w, offsets)
+    dx = gmm_cuda.gmm_ragged(dy, w.transpose(1, 2), offsets)
+    dw = gmm_cuda.gmm_ragged_dw(x, dy, offsets)
+    torch.cuda.synchronize()
+    _gmm_close(out, gmm_ref.grouped_matmul(x, w, gs))
+    _gmm_close(dx, gmm_ref.grouped_matmul(dy, w.transpose(1, 2), gs))
+    _gmm_close(dw, gmm_ref.ragged_transposed_matmul(x, dy, gs))
+    for g in np.flatnonzero(np.asarray(sizes) == 0):
+        assert not dw[g].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", list(range(1, 9)))
+def test_gmm_ragged_dw_every_split_repeats_bit_equal(card, split):
+    """The cluster's rank-order sum of gmm_ragged_dw: at every split, on
+    each tile, the gradient agrees with the plain T, and a launch repeated
+    gives the same bits; an empty group and ranks with no rows add
+    zeros."""
+    rng = np.random.default_rng(18)
+    G, M, K, N = 5, 5000, 256, 256
+    sizes = (1013, 0, 1989, 995, 1003)
+    x, dy = _randn(rng, (M, K), card), _randn(rng, (M, N), card)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=card)
+    offsets = gmm_ref.group_offsets(gs)
+    want = gmm_ref.ragged_transposed_matmul(x, dy, gs)
+    lib = gmm_cuda._library()
+    for bm, bn in gmm_cuda.TILES:
+        outs = []
+        for _ in range(2):
+            c = torch.full((G, K, N), float("nan"), device=card)
+            assert lib.gmm_ragged_dw(
+                x.data_ptr(), dy.data_ptr(), offsets.data_ptr(),
+                c.data_ptr(), G, M, K, N, bm, bn, split,
+                torch.cuda.current_stream().cuda_stream) == 0
+            outs.append(c)
+        torch.cuda.synchronize()
+        _gmm_close(outs[0], want)
+        assert torch.equal(outs[0], outs[1])
+        assert not outs[0][1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step", ["x", "w"])
+def test_gmm_ragged_second_order_grads_match_ref_autograd(card, step):
+    """An inner gradient step, on the inputs (MB-MPO's) or on the member
+    weights, then the gradient of a loss at the stepped point w.r.t. both:
+    through the kernels' Functions (every product a kernel, its output
+    carrying no graph) against autograd of the plain route, at the
+    assigned predictor's widths."""
+    rng = np.random.default_rng(19)
+    K, B, dims = 5, 1000, (30, 256, 256, 23)
+    ws = [_randn(rng, (K, a, b), card).mul_(a ** -0.5).requires_grad_(True)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [_randn(rng, (K, b), card).requires_grad_(True) for b in dims[1:]]
+    x = _randn(rng, (B, dims[0]), card).requires_grad_(True)
+    idx = torch.from_numpy(rng.integers(0, K - 1, B)).to(card)  # one empty
+    target = _randn(rng, (B, dims[-1]), card)
+    leaves = ws + bs + [x]
+
+    def loss(ws_, x_, impl):
+        out = gmm_ops.ensemble_mlp_select({"w": ws_, "b": bs}, x_, idx,
+                                          impl=impl)
+        return ((out - target) ** 2).mean()
+    grads = {}
+    for impl in ("cuda", "ref"):
+        before = _ragged_counts()
+        if step == "x":
+            (g,) = torch.autograd.grad(loss(ws, x, impl), (x,),
+                                       create_graph=True)
+            outer = loss(ws, x - 0.05 * g, impl)
+        else:
+            g = torch.autograd.grad(loss(ws, x, impl), ws, create_graph=True)
+            outer = loss([w - 0.05 * gw for w, gw in zip(ws, g)], x, impl)
+        grads[impl] = torch.autograd.grad(outer, leaves)
+        torch.cuda.synchronize()
+        if impl == "cuda":
+            fwd, bwd, dw = _ragged_delta(before)
+            assert fwd == 2 * len(ws) and bwd > 0 and dw > 0
+    for got, want in zip(grads["cuda"], grads["ref"]):
+        _gmm_close(got, want)
+
+
+@pytest.mark.gpu
+def test_gmm_ragged_kernels_refuse_without_falling_back(card):
+    """A wrong dtype, a non-contiguous operand, offsets on the CPU or of
+    the wrong type raise; no plain product runs in the kernel's place and
+    no launch is counted."""
+    before = _ragged_counts()
+    x = torch.zeros((8, 4), device=card)
+    w = torch.zeros((2, 4, 6), device=card)
+    dy = torch.zeros((8, 6), device=card)
+    offs = torch.tensor([0, 3, 8], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        gmm_cuda.gmm_ragged(x.double(), w.double(), offs)
+    with pytest.raises(ValueError, match="float32"):
+        gmm_cuda.gmm_ragged_dw(x.half(), dy.half(), offs)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_cuda.gmm_ragged(torch.zeros((4, 8), device=card).t(), w, offs)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_cuda.gmm_ragged_dw(x, torch.zeros((6, 8), device=card).t(), offs)
+    with pytest.raises(ValueError, match="dense"):
+        gmm_cuda.gmm_ragged(x, torch.zeros((2, 4, 12), device=card)[..., ::2],
+                            offs)
+    for bad in (offs.cpu(), offs.long()):
+        with pytest.raises(ValueError, match="offsets"):
+            gmm_cuda.gmm_ragged(x, w, bad)
+        with pytest.raises(ValueError, match="offsets"):
+            gmm_cuda.gmm_ragged_dw(x, dy, bad)
+    with pytest.raises(ValueError, match="float32"):
+        gmm_ops.grouped_matmul(x.double(), w.double(),
+                               torch.tensor([3, 5], device=card))
+    assert _ragged_counts() == before
+    lib = gmm_cuda._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for bm, bn, split in ((48, 64, 1), (64, 64, 9), (64, 64, 0)):
+        assert lib.gmm_ragged_dw(x.data_ptr(), dy.data_ptr(), offs.data_ptr(),
+                                 w.data_ptr(), 2, 8, 4, 6, bm, bn, split,
+                                 stream) != 0
+    assert lib.gmm_ragged(x.data_ptr(), w.data_ptr(), offs.data_ptr(),
+                          dy.data_ptr(), 2, 8, 6, 4, 0, 24, 16, 64,
+                          stream) != 0
 
 
 @pytest.mark.gpu
