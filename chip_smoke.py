@@ -71,25 +71,49 @@ Phases, each printing one JSON line:
    step, one ``improve`` input shape, one policy version per step, finite
    imagined returns and at least one TRPO step found. Then
    ``improve_profile``: ``torch.profiler`` over one more ME-TRPO step.
-9. ``ssm_model_check``: Mamba2-2.7B at full width, cut to 2 layers, f32:
+9. The engines, on the same configuration (``pr2_lego_stack``, the ensemble
+   at ``EnsembleConfig`` defaults, ME-TRPO at ``AlgoConfig`` defaults, the
+   policy of ``examples/pr2_arm.py``) with ``RunConfig(total_trajs=12,
+   seed=0)``. ``event_run``: ``AsyncTrainer`` under the event engine.
+   Asserts 120.0 s of robot time (12 × horizon 100 × dt 0.1), exactly 12
+   trajectories, one input shape on both learners, each epoch's
+   ``gmm_equal`` launches as ``model_learn`` counts them at that epoch's
+   ring, 50 ``imag_fused`` launches per policy step and finite eval
+   returns; reports the model epochs, policy steps and wall seconds of the
+   run, and the host wall seconds in each worker's ``step`` (and the
+   recorder's evals), each call ending in ``torch.cuda.synchronize()`` so
+   that its device work counts with it. A second event run, with the same
+   checks and no synchronising, gives the engine's own wall time
+   (``unsynchronised``). ``sequential_run``: ``SequentialTrainer`` on the
+   same configuration in rounds of 4 rollouts (so it collects the same 12
+   trajectories), its other arguments at their defaults: the same checks,
+   a robot time above its collection time, and above the event run's (the
+   paper's Fig. 2). ``quickstart``: ``examples/torch_quickstart.main()``
+   on the card (pendulum, 3 members of hidden 64, a policy of 32, 48 × 40
+   imagination): 120.0 s of robot time and the same launch checks,
+   ``imag_fused`` at 40 launches a step.
+10. ``ssm_model_check``: Mamba2-2.7B at full width, cut to 2 layers, f32:
    prefill(S) then decode(token S) against prefill(S + 1), and the kernel
    route against the plain scan.
-10. ``ssm_serve``: lock-step serving of the full 64-layer Mamba2-2.7B in
+11. ``ssm_serve``: lock-step serving of the full 64-layer Mamba2-2.7B in
    bf16: batch 4, 1,024-token prompts, 32 greedy tokens. Asserts 64
    ``ssd_chunked`` launches per prefill, one decode input shape and finite
    logits; reports prefill, time to first token, decode tokens/s, tick
    latencies and peak memory. Then ``ssm_tick_profile``:
    ``torch.profiler`` over one more tick.
-11. ``ssm_forward``: the stateless ``loss_forward`` at batch 4, 2,048
+12. ``ssm_forward``: the stateless ``loss_forward`` at batch 4, 2,048
    tokens, forward only: 64 launches, tokens/s, the scan's share of
    device time.
-12. ``kernels``: one entry per kernel, as the port's records expect.
+13. ``kernels``: one entry per kernel, as the port's records expect;
+   ``gmm_equal`` and ``imag_fused`` also give their ``event_run``
+   launches.
 
 Each kernel's launches are counted from 0 just before the phase that
 drives its path (``serve``, ``model_learn``, ``assigned_predict``,
-``assigned_grad``, ``policy_improve``, ``ssm_serve``, ``ssm_forward``)
-and read just after it; comparison launches never count. The line before
-the last is the card's name and power limit from ``nvidia-smi``; the last is
+``assigned_grad``, ``policy_improve``, each engine run of ``event_run``,
+``sequential_run``, ``quickstart``, ``ssm_serve``, ``ssm_forward``) and
+read just after it; comparison launches never count. The line before the
+last is the card's name and power limit from ``nvidia-smi``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It imports nothing of JAX and nothing
 of the JAX package ``repro``.
@@ -170,6 +194,12 @@ SSM_DECODE_TOL, SSM_ROUTE_TOL = 1e-3, 1e-4
 SSM_CHECK_S = 200                    # two chunks, the second padded
 SSM_BATCH, SSM_PROMPT, SSM_NEW = 4, 1024, 32
 SSM_FORWARD_SEQ = 2048
+# the engines (event_run, sequential_run): RunConfig(total_trajs=12, seed=0)
+ENGINE_TRAJS = 12
+# SequentialTrainer's rounds: 4 rollouts each, so that it collects the
+# same 12 trajectories as the event run and its extra robot time is its
+# training alone
+SEQ_ROLLOUTS = 4
 
 
 def emit(obj) -> None:
@@ -379,6 +409,20 @@ GMM_EQUAL_CASES = [
     ("val_l1_fwd", 5, 5000, 30, 256, "fwd_bcast"),
     ("val_l2_fwd", 5, 5000, 256, 256, "fwd"),
     ("val_l3_fwd", 5, 5000, 256, 23, "fwd"),
+    # the quickstart's ensemble (pendulum, obs 3, act 1, hidden 64, 3
+    # members): minibatches of 256 rows, a val ring of 10,000
+    ("quickstart_train_l1_fwd", 3, 256, 4, 64, "fwd_bcast"),
+    ("quickstart_train_l2_fwd", 3, 256, 64, 64, "fwd"),
+    ("quickstart_train_l3_fwd", 3, 256, 64, 3, "fwd"),
+    ("quickstart_train_l1_dx", 3, 256, 4, 64, "dx"),
+    ("quickstart_train_l1_dw", 3, 256, 4, 64, "dw_bcast"),
+    ("quickstart_train_l2_dx", 3, 256, 64, 64, "dx"),
+    ("quickstart_train_l2_dw", 3, 256, 64, 64, "dw"),
+    ("quickstart_train_l3_dx", 3, 256, 64, 3, "dx"),
+    ("quickstart_train_l3_dw", 3, 256, 64, 3, "dw"),
+    ("quickstart_val_l1_fwd", 3, 10000, 4, 64, "fwd_bcast"),
+    ("quickstart_val_l2_fwd", 3, 10000, 64, 64, "fwd"),
+    ("quickstart_val_l3_fwd", 3, 10000, 64, 3, "fwd"),
     ("edge_g1", 1, 128, 64, 64, "fwd"),
     ("edge_m37_n23", 5, 37, 32, 23, "fwd"),
     ("edge_k1", 3, 70, 1, 33, "fwd"),
@@ -580,7 +624,7 @@ def sweep_gmm_plans(gmm_cuda, gmm_ref) -> None:
     lib = gmm_cuda._library()
     gen = torch.Generator(device="cuda").manual_seed(3)
     for name, G, M, K, N, layout in GMM_EQUAL_CASES:
-        if name.startswith("edge"):
+        if name.startswith(("edge", "quickstart")):
             continue
         a, b = gmm_equal_operands(gen, G, M, K, N, layout)
         want = gmm_ref.grouped_matmul(a, b)
@@ -691,6 +735,9 @@ IMAG_CASES = [
     ("rollout_b64", 5, 64, 23, 7, 256, POLICY_HIDDEN, 2, None),
     ("rollout_b4096", 5, 4096, 23, 7, 256, POLICY_HIDDEN, 2, None),
     ("mbmpo_member_k1_b64", 1, 64, 23, 7, 256, POLICY_HIDDEN, 2, None),
+    # the quickstart's step: pendulum, 3 members of hidden 64, policy
+    # 3 -> 32 -> 32 -> 1, 48 imagined starts
+    ("quickstart_b48", 3, 48, 3, 1, 64, 32, 2, None),
     # test_kernels_interpret.py's edge shapes, with its one-hidden-layer
     # policy
     ("edge_empty_groups", 4, 64, 3, 1, 96, 48, 1, (10, 0, 54, 0)),
@@ -970,6 +1017,19 @@ def profile_decode(srv, cfg, ticks: int = 3, tries: int = 3) -> dict:
 
 # ---------------------------------------------------------------- phase 6
 
+def epoch_gmm_launches(learner) -> tuple:
+    """The ``gmm_equal`` launches (forward, backward) of one epoch on the
+    learner's ring as it now stands: every active minibatch runs the depth
+    layers forward, each layer's dW and dX backward (the first layer's dX
+    too: jax.grad, and so the port, differentiates the normaliser), and
+    one masked validation forward."""
+    from repro_torch.mbrl import dynamics as DYN
+    nb, bs = DYN.ring_grid(learner.cfg, learner.buffer.capacity)
+    n_active = min(max(learner.buffer.size // bs, 1), nb)
+    depth = len(learner.params["members"]["w"])
+    return n_active * depth + depth, n_active * 2 * depth
+
+
 def model_learn(gmm_ops) -> tuple:
     """Algorithms 1-2 through the port's worker entry points on the card.
     Returns the learner, its model server and the phase's record."""
@@ -1010,7 +1070,6 @@ def model_learn(gmm_ops) -> tuple:
     fill_shapes = (learner.compile_count(), learner.val_compile_count())
     nb, bs = DYN.ring_grid(cfg, buf.capacity)
     n_active = min(max(buf.size // bs, 1), nb)
-    depth = len(learner.params["members"]["w"])
     epochs = []
     for _ in range(LEARN_EPOCHS):
         f0, b0 = gmm_ops.equal_launches, gmm_ops.equal_bwd_launches
@@ -1026,11 +1085,7 @@ def model_learn(gmm_ops) -> tuple:
             "launches_bwd": gmm_ops.equal_bwd_launches - b0,
             "version_step": model_server.version - v0})
     launches = (gmm_ops.equal_launches, gmm_ops.equal_bwd_launches)
-    # per epoch: every minibatch runs the depth layers forward, each
-    # layer's dW and dX backward (the first layer's dX too: jax.grad, and
-    # so the port, differentiates the normaliser), and one masked
-    # validation forward
-    want_fwd, want_bwd = n_active * depth + depth, n_active * 2 * depth
+    want_fwd, want_bwd = epoch_gmm_launches(learner)
     vals = [e["val_loss"] for e in epochs]
     checks = {
         "total_pushed == total_trajs": data.total_pushed == LEARN_TRAJS,
@@ -1431,6 +1486,191 @@ def profile_improve(worker) -> dict:
             "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
 
 
+# ---------------------------------------------------------------- phase 9
+
+def engine_parts():
+    """The engines' configuration: pr2_lego_stack, the ensemble at
+    ``EnsembleConfig`` defaults, ME-TRPO at ``AlgoConfig`` defaults and the
+    policy of ``examples/pr2_arm.py``, as ``model_learn`` and
+    ``policy_improve`` run them."""
+    from repro_torch.envs import make_env
+    from repro_torch.mbrl import algos as A
+    from repro_torch.mbrl import dynamics as DYN
+    from repro_torch.mbrl import policy as PI
+    env = make_env(LEARN_ENV)
+    ens = DYN.EnsembleConfig(env.obs_dim, env.act_dim)
+    pol = PI.PolicyConfig(env.obs_dim, env.act_dim, hidden=POLICY_HIDDEN)
+    acfg = A.AlgoConfig(algo="me-trpo")
+    return env, ens, acfg, A.make_algo(acfg, pol, env.reward,
+                                       env.reset_batch)
+
+
+def time_workers(trainer, gmm_ops, sync: bool) -> dict:
+    """Wrap the trainer's worker instances' ``step`` and its recorder's
+    ``record`` to count and time each call on the host's clock. With
+    ``sync`` each call also ends in ``torch.cuda.synchronize()``, so the
+    seconds of a worker include its device work (and the run loses the
+    overlap of one step's kernels with the next step's host code);
+    without it they are the host's seconds alone and the run's own wall
+    time stands. Each model epoch also records its ``gmm_equal`` launches
+    beside the count its ring implies."""
+    stats = {k: {"calls": 0, "work": 0, "s": 0.0}
+             for k in ("collect", "model", "policy", "eval")}
+    epochs = []
+    workers = [("collect", c) for c in getattr(trainer, "collectors",
+                                                [trainer.collector])]
+    workers += [("model", trainer.model_worker),
+                ("policy", trainer.policy_worker),
+                ("eval", trainer.recorder)]
+    for kind, obj in workers:
+        name = "record" if kind == "eval" else "step"
+
+        def timed(*args, _call=getattr(obj, name), _kind=kind):
+            f0, b0 = gmm_ops.equal_launches, gmm_ops.equal_bwd_launches
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _call(*args)
+            if sync:
+                torch.cuda.synchronize()
+            st = stats[_kind]
+            st["calls"] += 1
+            st["s"] += time.perf_counter() - t0
+            st["work"] += out is not None and out is not False
+            if _kind == "model" and out is not None:
+                epochs.append({
+                    "launches": [gmm_ops.equal_launches - f0,
+                                 gmm_ops.equal_bwd_launches - b0],
+                    "want": list(epoch_gmm_launches(trainer.model_worker)),
+                    "ring": trainer.model_worker.buffer.size})
+            return out
+        setattr(obj, name, timed)
+    return {"workers": stats, "epochs": epochs}
+
+
+def drive_engine(name, run, gmm_ops, imag_ops, *, sync: bool) -> dict:
+    """``run(hook)`` builds one trainer, hands it to ``hook`` before it
+    runs, runs it through its entry point and returns the trace. The
+    launch counts go to 0 just before ``run`` and are read just after.
+    Asserts one input shape on both learners, the ``gmm_equal`` launches
+    of every epoch, ``imag_fused``'s H launches a policy step, robot time
+    = collected trajectories x horizon x dt plus the synchronous engines'
+    training time, and finite eval returns."""
+    made = []
+
+    def hook(trainer):
+        made.append((trainer, time_workers(trainer, gmm_ops, sync)))
+    gmm_ops.equal_launches = gmm_ops.equal_bwd_launches = 0
+    imag_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace = run(hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gmm = gmm_ops.equal_launches + gmm_ops.equal_bwd_launches
+    imag = imag_ops.launches
+    (trainer, timing), = made
+    env, model, policy = (trainer.env, trainer.model_worker,
+                          trainer.policy_worker)
+    horizon = policy.algo.cfg.imagine_horizon
+    epochs, workers = timing["epochs"], timing["workers"]
+    robot, trajs = trace[-1]["time"], trace[-1]["trajs"]
+    collect_s = trajs * env.horizon * env.dt
+    checks = {
+        "finite eval returns": all(np.isfinite(r["eval_return"])
+                                   for r in trace),
+        "one train_epoch shape": model.compile_count() == 1,
+        "one improve shape": policy.compile_count() == 1,
+        "every epoch's gmm_equal launches as its ring implies":
+            all(e["launches"] == e["want"] for e in epochs),
+        "gmm_equal launches = the epochs' sum":
+            gmm == sum(sum(e["want"]) for e in epochs),
+        "one epoch recorded per model epoch": len(epochs) == model.epochs,
+        f"imag_fused launches = policy steps x {horizon}":
+            imag == policy.steps * horizon > 0,
+        "trajectories = the data server's":
+            trainer.data_server.total_pushed == trajs,
+    }
+    if hasattr(trainer, "collectors"):
+        # the async engine: robot time is the collection time (Fig. 2)
+        checks[f"robot time = {trajs} x {env.horizon} x {env.dt} s"] = \
+            abs(robot - collect_s) <= 1e-9
+    else:
+        # a synchronous engine: collection, then training on the clock
+        checks["robot time above the collection time"] = robot > collect_s
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{name} failed: {failed}; epochs {epochs}, "
+                           f"trace {trace}")
+    busy = sum(w["s"] for w in workers.values())
+    return {
+        "engine": type(trainer).__name__, "synchronised_steps": sync,
+        "trajs": trajs, "robot_time_s": robot, "collection_time_s": collect_s,
+        "wall_s": wall, "model_epochs": model.epochs,
+        "policy_steps": policy.steps, "evals": len(trace),
+        "worker_wall_s": {k: w["s"] for k, w in workers.items()},
+        "worker_share": {k: w["s"] / wall for k, w in workers.items()},
+        "engine_other_s": wall - busy, "worker_calls": workers,
+        "gmm_equal_launches": gmm, "imag_fused_launches": imag,
+        "launches_per_epoch": sorted({tuple(e["want"]) for e in epochs}),
+        "eval_returns": [r["eval_return"] for r in trace],
+        "trace_time": [r["time"] for r in trace]}
+
+
+def engine_run(name, trainer_cls, gmm_ops, imag_ops, *, sync=True,
+               **kw) -> dict:
+    """One engine through its entry point on the card:
+    ``RunConfig(total_trajs=ENGINE_TRAJS, seed=0)`` on ``engine_parts``,
+    checked by ``drive_engine``; every engine must end at exactly
+    ``ENGINE_TRAJS`` trajectories."""
+    from repro_torch.core import RunConfig
+    env, ens, acfg, algo = engine_parts()
+
+    def run(hook):
+        trainer = trainer_cls(env, ens, algo,
+                              RunConfig(total_trajs=ENGINE_TRAJS, seed=0),
+                              **kw)
+        hook(trainer)
+        return trainer.run()
+    rec = drive_engine(name, run, gmm_ops, imag_ops, sync=sync)
+    if rec["trajs"] != ENGINE_TRAJS:
+        raise RuntimeError(f"{name}: {rec['trajs']} trajectories, not "
+                           f"{ENGINE_TRAJS}")
+    return {"env": LEARN_ENV, "ensemble": dataclasses.asdict(ens),
+            "algo": dataclasses.asdict(acfg), "policy_hidden": POLICY_HIDDEN,
+            "total_trajs": ENGINE_TRAJS, "trainer_kw": kw, **rec}
+
+
+def quickstart(gmm_ops, imag_ops, **main_kw) -> dict:
+    """``examples/torch_quickstart.main(**main_kw)`` (on the card when
+    called with no arguments), its table captured and its trainer checked
+    by ``drive_engine`` without synchronising its steps: the run must end
+    at its trajectories x horizon x dt of robot time, and print it."""
+    import contextlib
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    printed = io.StringIO()
+
+    def run(hook):
+        def hooked(*args, _cls=mod.AsyncTrainer, **kw):
+            trainer = _cls(*args, **kw)
+            hook(trainer)
+            return trainer
+        mod.AsyncTrainer = hooked
+        with contextlib.redirect_stdout(printed):
+            return mod.main(**main_kw)
+    rec = drive_engine("quickstart", run, gmm_ops, imag_ops, sync=False)
+    lines = printed.getvalue().splitlines()
+    want = f"total simulated robot time: {rec['robot_time_s']} s"
+    if not any(ln.startswith(want) for ln in lines):
+        raise RuntimeError(f"quickstart: no line {want!r} in {lines}")
+    return {**rec, "printed": lines}
+
+
 # ---------------------------------------------------------------- phase 3
 
 # name, B, L, H, P, N, G, chunk, dtype, initial state, final state, dt
@@ -1535,7 +1775,7 @@ def check_ssd(ssd_cuda, ssd_ref) -> dict:
     return rows
 
 
-# ---------------------------------------------------------------- phase 9
+# ---------------------------------------------------------------- phase 10
 
 def _scaled(got, want) -> float:
     return ((got.float() - want.float()).abs().max().item()
@@ -1587,7 +1827,7 @@ def check_ssm_model(CONFIG, init_params, api, InputShape) -> dict:
     return out
 
 
-# ---------------------------------------------------------------- phase 10
+# ---------------------------------------------------------------- phase 11
 
 def ssm_serve(CONFIG, init_params, api, InputShape, ssd_ops) -> tuple:
     """Lock-step serving of the full Mamba2-2.7B in bf16 through the port's
@@ -1675,7 +1915,7 @@ def profile_ssm_tick(model, dec, cache, tok) -> dict:
             "device_busy_share": device / wall_ms, "kernels": len(kernels)}
 
 
-# ---------------------------------------------------------------- phase 11
+# ---------------------------------------------------------------- phase 12
 
 def ssm_forward(model, LM, ssd_ops) -> dict:
     """The stateless forward and loss of the full Mamba2-2.7B (forward
@@ -1727,6 +1967,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.glm4_9b import CONFIG
     from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA
+    from repro_torch.core import AsyncTrainer, SequentialTrainer
     from repro_torch.core.servers import ParameterServer
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
@@ -1804,6 +2045,31 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    event = engine_run("event_run", AsyncTrainer, gmm_ops, imag_ops)
+    own = engine_run("event_run", AsyncTrainer, gmm_ops, imag_ops,
+                     sync=False)
+    emit({"phase": "event_run", **event, "unsynchronised": {
+        k: own[k] for k in (
+            "wall_s", "worker_wall_s", "worker_share", "engine_other_s",
+            "robot_time_s", "trajs", "model_epochs", "policy_steps",
+            "gmm_equal_launches", "imag_fused_launches")}})
+    seq = engine_run("sequential_run", SequentialTrainer, gmm_ops, imag_ops,
+                     n_rollouts=SEQ_ROLLOUTS)
+    if not seq["robot_time_s"] > event["robot_time_s"]:
+        raise RuntimeError(f"sequential_run: robot time "
+                           f"{seq['robot_time_s']} s is not above the "
+                           f"async run's {event['robot_time_s']} s")
+    emit({"phase": "sequential_run", **seq,
+          "robot_time_over_event_run": seq["robot_time_s"]
+          / event["robot_time_s"]})
+    qs = quickstart(gmm_ops, imag_ops)
+    if qs["robot_time_s"] != 120.0:
+        raise RuntimeError(f"quickstart: robot time {qs['robot_time_s']} "
+                           "s, not 120.0")
+    emit({"phase": "quickstart", **qs})
+    gc.collect()
+    torch.cuda.empty_cache()
+
     emit({"phase": "ssm_model_check",
           **check_ssm_model(MAMBA, init_params, api, InputShape)})
     (model, dec, cache, tok), ssm_served = ssm_serve(
@@ -1839,6 +2105,7 @@ def main() -> int:
         "launches": learned["gmm_equal_launches"],
         "launches_fwd": learned["gmm_equal_launches_fwd"],
         "launches_bwd": learned["gmm_equal_launches_bwd"],
+        "launches_event_run": event["gmm_equal_launches"],
         "max_abs_err": max(r["max_abs_err"]
                            for r in gmm_rows["equal"].values()),
         "ms": eq["ms"], "plain_ms": eq["plain_ms"],
@@ -1868,6 +2135,7 @@ def main() -> int:
         "source": str(imag_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/imag/pallas.py:97",
         "launches": improved["imag_fused_launches"],
+        "launches_event_run": event["imag_fused_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in imag_rows.values()),
         "ms": im["ms"], "plain_ms": im["plain_ms"],
         "bound_ms": im["bound_ms"], "bound_by": im["bound_by"],

@@ -1,1 +1,12 @@
-"""Servers and workers of the paper's Fig. 1a: parameter and data servers, the ring buffer, the collection and model-learning workers."""
+"""The paper's Fig. 1a: the clocks, the training engines, the parameter and
+data servers, the ring buffer and the three workers."""
+from repro_torch.core.clock import RealClock, VirtualClock
+from repro_torch.core.runtime import (AsyncTrainer, PartialAsyncDataPolicy,
+                                      PartialAsyncModelPolicy, RunConfig,
+                                      SequentialTrainer, clear_eval_cache)
+from repro_torch.core.servers import (BackpressureError, DataServer,
+                                      ParameterServer, ReplayBuffer)
+from repro_torch.core.workers import (DataCollectionWorker,
+                                      ExplorationSchedule,
+                                      ModelLearningWorker,
+                                      PolicyImprovementWorker)

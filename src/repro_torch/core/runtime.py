@@ -1,0 +1,407 @@
+"""Training engines: the port of ``repro/core/runtime.py``, event mode.
+
+* ``AsyncTrainer`` — the paper's contribution (Fig. 1a), under the
+  deterministic discrete-event engine (``mode="event"``). Each worker has
+  a virtual-time cursor; the engine always advances the worker with the
+  SMALLEST cursor, so relative speeds (robot control frequency vs.
+  compute) are reproduced exactly. It runs a FLEET of ``n_collectors``
+  data-collection workers, each an env farm of ``envs_per_collector``
+  robots, against the one global ``total_trajs`` criterion.
+* ``SequentialTrainer`` — the classic synchronous baseline (Fig. 1b).
+* ``PartialAsyncModelPolicy`` — §5.2 ablation (interleave model/policy).
+* ``PartialAsyncDataPolicy`` — §5.3 ablation (interleave data/policy).
+
+All engines record an eval trace: list of dicts
+(time, trajs, env_steps, eval_return) — one row per evaluation.
+
+The schedule is the reference's bit for bit: the cursors are Python floats
+advanced by the same expressions in the same order, and ties resolve by
+dict insertion order (``collect:0..N-1``, then ``model``, then
+``policy``). So for one ``RunConfig`` the sequence of worker steps, and
+the trace's ``time``, ``trajs`` and ``env_steps`` columns, equal the
+reference's whenever each step's outcome (work or idle) does — always
+with ``early_stop=False``.
+
+Seeds. torch cannot replay the reference's split of ``key(seed)`` into
+the collector, model, policy and eval streams, so :func:`run_seeds`
+derives four integer seeds from ``RunConfig.seed`` instead: one CPU
+``torch.Generator`` seeded with it draws four integers in ``[0, 2**62)``
+by one ``torch.randint`` call, in the order collector, model, policy,
+eval. Collector ``i`` draws from ``collector_generator(collector_seed,
+i)``; the model and policy workers seed their own generators with theirs;
+the eval generator lives on the trainer's device.
+
+Not ported (each raises, naming ROADMAP.md): ``mode="threads"`` and
+``mode="procs"``, ``transport="tcp"``, role meshes (``mesh=``,
+``roles=``) and ``supervisor=``. ``RunConfig``'s fields for them are kept,
+with the reference's names and defaults, and ignored, as the reference's
+event engine ignores them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.servers import DataServer, ParameterServer
+from repro_torch.core.workers import (DataCollectionWorker,
+                                      ExplorationSchedule,
+                                      ModelLearningWorker,
+                                      PolicyImprovementWorker, default_burst)
+from repro_torch.mbrl import policy as PI
+from repro_torch.utils.tree import tree_leaves
+
+
+@dataclasses.dataclass
+class RunConfig:
+    total_trajs: int = 40              # global stopping criterion (§4)
+    eval_every_policy_steps: int = 5
+    eval_rollouts: int = 4
+    seed: int = 0
+    # virtual durations for the event engine
+    model_epoch_time: float = 1.0
+    policy_step_time: float = 1.25   # ~GPU TRPO update on an imagined batch
+    collect_speed: float = 1.0         # Fig. 5b: 2.0 = twice as fast
+    ema_weight: float = 0.9            # Fig. 5a
+    early_stop: bool = True
+    min_warmup_trajs: int = 4          # initial dataset before model pushes
+    # collector fleet: N data-collection workers sharing the ONE global
+    # total_trajs criterion. collect_noise optionally sets per-collector
+    # exploration noise scales (cycled across the fleet); None = every
+    # collector at 1.0.
+    n_collectors: int = 1
+    collect_noise: Optional[tuple] = None
+    # env farm: each collector simulates B envs per step and pushes the
+    # whole batch at once; a step claims min(B, remaining), so the global
+    # criterion still lands exactly
+    envs_per_collector: int = 1
+    # the fields below configure the threads and procs engines and the
+    # tcp transport, none of which is ported: kept so that one config
+    # means the same run in both packages, and ignored here
+    pace_collection: bool = False
+    push_timeout_s: float = 30.0
+    snapshot_every_s: float = 2.0
+    ckpt_dir: Optional[str] = None
+    max_restarts: int = 3
+    min_final_model_version: int = 0
+    min_final_policy_version: int = 0
+    transport: str = "shm"
+    bind: Optional[str] = None
+
+
+def run_seeds(seed: int) -> tuple:
+    """The run's (collector, model, policy, eval) seeds from
+    ``RunConfig.seed``: one CPU generator seeded with it, one draw of four
+    integers in ``[0, 2**62)``."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return tuple(int(s) for s in torch.randint(0, 2 ** 62, (4,),
+                                               generator=gen))
+
+
+def _not_ported(what: str) -> str:
+    return (f"{what} is not ported to repro_torch yet: only the event "
+            "engine is (ROADMAP.md §1, open items)")
+
+
+def clear_eval_cache() -> None:
+    """Kept for the reference's API, and does nothing: the reference caches
+    one compiled eval program per (env, eval_rollouts), while here an eval
+    is a plain closure that each recorder builds for itself."""
+
+
+def _make_eval(env, n: int) -> Callable:
+    def evaluate(policy_params, *, generator=None, reset_draws=None):
+        """Mean over ``n`` rollouts of the summed reward under the
+        deterministic policy, all rollouts stepped together on the
+        policy's device. ``reset_draws`` (n, *reset_shape) default to
+        draws from ``generator``."""
+        if reset_draws is None:
+            reset_draws = env.reset_draws(n, generator)
+        dev = tree_leaves(policy_params)[0].device
+        noise = torch.zeros((env.horizon, n, env.act_dim), device=dev)
+        traj = env.rollout_batch(PI.deterministic_action, policy_params, n,
+                                 reset_draws=reset_draws, noise=noise)
+        return traj["rew"].sum(1).mean()
+    return evaluate
+
+
+class _Recorder:
+    def __init__(self, env, eval_rollouts):
+        self.env = env
+        self.n = eval_rollouts
+        self.trace: List[Dict[str, float]] = []
+        self._eval = _make_eval(env, eval_rollouts)
+
+    def record(self, t, trajs, policy_params, generator=None, *,
+               reset_draws=None):
+        """Evaluate the policy with ``n`` rollouts whose resets are drawn
+        from ``generator`` (or given as ``reset_draws``) and append a
+        trace row."""
+        ret = float(self._eval(policy_params, generator=generator,
+                               reset_draws=reset_draws))
+        self.trace.append({"time": float(t), "trajs": int(trajs),
+                           "env_steps": int(trajs * self.env.horizon),
+                           "eval_return": ret})
+        return ret
+
+
+class AsyncTrainer:
+    def __init__(self, env, ens_cfg, algo,
+                 run_cfg: Optional[RunConfig] = None, *,
+                 mode: str = "event", mesh=None, roles=None,
+                 n_collectors: Optional[int] = None,
+                 envs_per_collector: Optional[int] = None,
+                 exploration: Optional[ExplorationSchedule] = None,
+                 supervisor=None, device=None):
+        """``n_collectors``: size of the data-collection fleet (overrides
+        ``run_cfg.n_collectors``); collector 0's stream is the lone
+        collector's, so N=1 is the single-collector engine.
+        ``exploration`` plugs in a per-collector
+        :class:`~repro_torch.core.workers.ExplorationSchedule` (default:
+        built from ``run_cfg.collect_noise``, or uniform 1.0).
+
+        ``envs_per_collector``: the env farm — each collector runs B
+        simulated robots per step (overrides
+        ``run_cfg.envs_per_collector``).
+
+        ``device``: where every worker and the eval run; None means CUDA.
+        ``mode``, ``mesh``, ``roles`` and ``supervisor`` take only their
+        defaults: the engines they select are not ported."""
+        if supervisor is not None and mode != "procs":
+            raise ValueError(
+                f'supervisor= hooks into the mode="procs" supervision '
+                f"loop only (got mode={mode!r}); "
+                + _not_ported('mode="procs"'))
+        if mode != "event":
+            raise NotImplementedError(_not_ported(f"mode={mode!r}"))
+        if mesh is not None or roles is not None:
+            raise NotImplementedError(
+                _not_ported("a role mesh (mesh=, roles=)"))
+        self.env = env
+        # fresh per-instance config: a shared mutable default would leak
+        # one caller's tweaks into every later trainer
+        run_cfg = RunConfig() if run_cfg is None else run_cfg
+        if n_collectors is not None:
+            run_cfg = dataclasses.replace(run_cfg,
+                                          n_collectors=int(n_collectors))
+        if envs_per_collector is not None:
+            run_cfg = dataclasses.replace(
+                run_cfg, envs_per_collector=int(envs_per_collector))
+        if run_cfg.n_collectors < 1:
+            raise ValueError(f"n_collectors must be >= 1, got "
+                             f"{run_cfg.n_collectors}")
+        if run_cfg.envs_per_collector < 1:
+            raise ValueError(f"envs_per_collector must be >= 1, got "
+                             f"{run_cfg.envs_per_collector}")
+        if run_cfg.transport not in ("shm", "tcp"):
+            raise ValueError(f"transport must be 'shm' or 'tcp', got "
+                             f"{run_cfg.transport!r}")
+        if run_cfg.transport == "tcp":
+            raise ValueError(
+                'transport="tcp" needs a real engine (mode="threads" or '
+                '"procs"): the event engine is a single-process virtual-'
+                "clock simulation with nothing to transport; "
+                + _not_ported("the threads and procs engines"))
+        self.run_cfg = run_cfg
+        self.exploration = exploration if exploration is not None else (
+            ExplorationSchedule(tuple(run_cfg.collect_noise))
+            if run_cfg.collect_noise else ExplorationSchedule())
+        self.device = resolve_device(device)
+        sc, sm, sp, se = run_seeds(run_cfg.seed)
+        self._eval_gen = torch.Generator(self.device).manual_seed(se)
+        self.data_server = DataServer()
+        self.model_server = ParameterServer()
+        self.policy_server = ParameterServer()
+        self.policy_worker = PolicyImprovementWorker(
+            algo, self.policy_server, self.model_server, sp,
+            device=self.device)
+        # the collector FLEET: every member shares the policy/data
+        # servers but owns its generator (collector 0 = the lone
+        # collector's stream) and its exploration rung
+        self.collectors = [
+            DataCollectionWorker(
+                env, self.policy_server, self.data_server,
+                self.policy_worker.state["policy"], sc,
+                speed=run_cfg.collect_speed, collector_id=i,
+                noise_scale=self.exploration.scale_for(i),
+                envs_per_step=run_cfg.envs_per_collector, device=self.device)
+            for i in range(run_cfg.n_collectors)]
+        self.collector = self.collectors[0]     # back-compat alias
+        self.model_worker = ModelLearningWorker(
+            ens_cfg, self.data_server, self.model_server, sm,
+            ema_weight=run_cfg.ema_weight, early_stop=run_cfg.early_stop,
+            min_trajs=run_cfg.min_warmup_trajs,
+            burst=default_burst(run_cfg.n_collectors,
+                                run_cfg.envs_per_collector),
+            device=self.device)
+        self.recorder = _Recorder(env, run_cfg.eval_rollouts)
+
+    def run(self) -> List[Dict[str, float]]:
+        return self._run_event()
+
+    def _run_event(self):
+        rc = self.run_cfg
+        traj_t = (self.env.horizon * self.env.dt) / rc.collect_speed
+        # cursors: virtual time at which each worker becomes free. The
+        # FLEET gets one cursor per collector, so N collectors overlap in
+        # virtual time exactly like N robots (Fig. 4); ties resolve by
+        # dict insertion order, so the schedule (and the trace) is a pure
+        # function of the RunConfig and each step's outcome.
+        cur = {f"collect:{i}": 0.0 for i in range(len(self.collectors))}
+        cur.update({"model": 0.0, "policy": 0.0})
+        collect_t = (lambda: max(cur[f"collect:{i}"]
+                                 for i in range(len(self.collectors))))
+        ds = self.data_server
+        since_eval = 0
+        B = rc.envs_per_collector
+        while ds.total_pushed < rc.total_trajs:
+            w = min(cur, key=cur.get)
+            t = cur[w]
+            if w.startswith("collect:"):
+                # env farm: B robots run in PARALLEL, so a batch step
+                # advances this collector's cursor by ONE trajectory
+                # time. The single-threaded engine needs no tickets:
+                # claim min(B, remaining) directly
+                g = min(B, rc.total_trajs - ds.total_pushed)
+                self.collectors[int(w.split(":", 1)[1])].step(g)
+                cur[w] = t + traj_t
+            elif w == "model":
+                out = self.model_worker.step()
+                # idle model worker re-checks for data shortly
+                cur[w] = t + (rc.model_epoch_time if out is not None
+                              else min(traj_t, rc.model_epoch_time) * 0.5)
+            else:
+                did = self.policy_worker.step()
+                cur[w] = t + (rc.policy_step_time if did
+                              else min(traj_t, rc.policy_step_time) * 0.5)
+                if did:
+                    since_eval += 1
+                    if since_eval >= rc.eval_every_policy_steps:
+                        since_eval = 0
+                        self.recorder.record(
+                            collect_t(), ds.total_pushed,
+                            self.policy_worker.state["policy"],
+                            self._eval_gen)
+        # final eval at the end of collection
+        self.recorder.record(collect_t(), ds.total_pushed,
+                             self.policy_worker.state["policy"],
+                             self._eval_gen)
+        return self.recorder.trace
+
+
+class SequentialTrainer:
+    """Classic synchronous MBRL (Fig. 1b): collect N -> fit model to
+    convergence (early stop / max epochs) -> G policy steps -> repeat.
+    Seeded as :class:`AsyncTrainer` is (:func:`run_seeds`)."""
+
+    def __init__(self, env, ens_cfg, algo,
+                 run_cfg: Optional[RunConfig] = None,
+                 *, n_rollouts: int = 5, max_model_epochs: int = 50,
+                 policy_steps: int = 20, device=None):
+        self.env = env
+        run_cfg = RunConfig() if run_cfg is None else run_cfg
+        self.run_cfg = run_cfg
+        self.n_rollouts = n_rollouts
+        self.max_model_epochs = max_model_epochs
+        self.policy_steps = policy_steps
+        self.device = resolve_device(device)
+        sc, sm, sp, se = run_seeds(run_cfg.seed)
+        self._eval_gen = torch.Generator(self.device).manual_seed(se)
+        self.data_server = DataServer()
+        self.model_server = ParameterServer()
+        self.policy_server = ParameterServer()
+        self.policy_worker = PolicyImprovementWorker(
+            algo, self.policy_server, self.model_server, sp,
+            device=self.device)
+        self.collector = DataCollectionWorker(
+            env, self.policy_server, self.data_server,
+            self.policy_worker.state["policy"], sc, device=self.device)
+        self.model_worker = ModelLearningWorker(
+            ens_cfg, self.data_server, self.model_server, sm,
+            ema_weight=run_cfg.ema_weight, early_stop=run_cfg.early_stop,
+            min_trajs=run_cfg.min_warmup_trajs, device=self.device)
+        self.recorder = _Recorder(env, run_cfg.eval_rollouts)
+
+    def _record(self, t) -> None:
+        self.recorder.record(t, self.collector.collected,
+                             self.policy_worker.state["policy"],
+                             self._eval_gen)
+
+    def run(self):
+        rc = self.run_cfg
+        t = 0.0
+        traj_t = self.env.horizon * self.env.dt
+        while self.collector.collected < rc.total_trajs:
+            for _ in range(self.n_rollouts):
+                self.collector.step()
+                t += traj_t
+            self.model_worker.stopper.reset()
+            for _ in range(self.max_model_epochs):
+                out = self.model_worker.step()
+                if out is None:
+                    break
+                t += rc.model_epoch_time
+            for i in range(self.policy_steps):
+                if self.policy_worker.step():
+                    t += rc.policy_step_time
+            self._record(t)
+        return self.recorder.trace
+
+
+class PartialAsyncModelPolicy(SequentialTrainer):
+    """§5.2: collect N rollouts, then ALTERNATE (1 model epoch, G' policy
+    steps) — policy sees models before they converge."""
+
+    def run(self):
+        rc = self.run_cfg
+        t = 0.0
+        traj_t = self.env.horizon * self.env.dt
+        g_alt = max(self.policy_steps // self.max_model_epochs, 1)
+        while self.collector.collected < rc.total_trajs:
+            for _ in range(self.n_rollouts):
+                self.collector.step()
+                t += traj_t
+            self.model_worker.stopper.reset()
+            for e in range(self.max_model_epochs):
+                out = self.model_worker.step()
+                if out is not None:
+                    t += rc.model_epoch_time
+                for _ in range(g_alt):
+                    if self.policy_worker.step():
+                        t += rc.policy_step_time
+                if out is None:
+                    break
+            self._record(t)
+        return self.recorder.trace
+
+
+class PartialAsyncDataPolicy(SequentialTrainer):
+    """§5.3: fit the model, then ALTERNATE (G policy steps, collect one
+    rollout) N times — collection uses fresh mid-training policies."""
+
+    def run(self):
+        rc = self.run_cfg
+        t = 0.0
+        traj_t = self.env.horizon * self.env.dt
+        g_alt = max(self.policy_steps // max(self.n_rollouts, 1), 1)
+        # initial data
+        for _ in range(self.n_rollouts):
+            self.collector.step()
+            t += traj_t
+        while self.collector.collected < rc.total_trajs:
+            self.model_worker.stopper.reset()
+            for _ in range(self.max_model_epochs):
+                out = self.model_worker.step()
+                if out is None:
+                    break
+                t += rc.model_epoch_time
+            for _ in range(self.n_rollouts):
+                for _ in range(g_alt):
+                    if self.policy_worker.step():
+                        t += rc.policy_step_time
+                self.collector.step()
+                t += traj_t
+            self._record(t)
+        return self.recorder.trace

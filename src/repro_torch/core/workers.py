@@ -84,6 +84,13 @@ def collector_generator(seed: int, collector_id: int,
     return torch.Generator(device).manual_seed(s)
 
 
+def default_burst(n_collectors: int, envs_per_step: int = 1) -> int:
+    """Drain burst capacity for a fleet of N collectors running B envs
+    each: an env farm's whole batch fits one burst, so its drain stays a
+    single ring scatter per chunk."""
+    return max(8, 2 * int(n_collectors), int(envs_per_step))
+
+
 def _sampler_for(noise_scale: float):
     if noise_scale == 1.0:
         return PI.sample_action

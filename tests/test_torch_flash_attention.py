@@ -98,6 +98,39 @@ def test_cpu_tensors_take_ref_and_never_count_a_launch(monkeypatch):
     assert fa_ops.launches == 0
 
 
+def test_kernel_route_refuses_a_backward_and_ref_keeps_the_graph(
+        monkeypatch):
+    """The kernel route's wiring with a stand-in for the binding that
+    allocates its output as the real one does (``torch.empty_like(q)``,
+    filled outside autograd): a gradient through it raises with a pointer
+    to the roadmap instead of silently losing the attention term, while
+    ``impl="ref"`` keeps its graph and serving under ``no_grad`` still
+    counts one launch a call."""
+    def binding(q, k, v, *, causal, window, scale):
+        o = torch.empty_like(q)
+        with torch.no_grad():
+            o.copy_(fa_ref.chunked_attention(q, k, v, causal=causal,
+                                             window=window, scale=scale))
+        return o
+
+    monkeypatch.setattr(fa_ops.cuda, "flash_attention", binding)
+    monkeypatch.setattr(fa_ops, "launches", 0)
+    case = CASES[0]
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _inputs(case))
+    want = fa_ops.attention(q, k, v, causal=case[6], impl="ref")
+    assert want.grad_fn is not None
+    got = fa_ops.attention(q, k, v, causal=case[6], impl="cuda")
+    assert fa_ops.launches == 1
+    torch.testing.assert_close(got, want.detach(), rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        got.sum().backward()
+    assert q.grad is None
+    with torch.no_grad():
+        served = fa_ops.attention(q, k, v, causal=case[6], impl="cuda")
+    assert fa_ops.launches == 2 and served.grad_fn is None
+
+
 def test_dispatch_refuses_what_it_cannot_run():
     q, k, v = (torch.from_numpy(a) for a in _inputs(CASES[0]))
     with pytest.raises(ValueError, match="not a CUDA device"):

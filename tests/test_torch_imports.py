@@ -1,7 +1,7 @@
-"""The PyTorch port stands alone: no module under ``src/repro_torch/``, and
-not ``chip_smoke.py``, imports ``jax`` or the JAX package ``repro``; every
-module imports on a host without a card, ``nvcc`` or ``triton``, and
-importing builds no kernel."""
+"""The PyTorch port stands alone: no module under ``src/repro_torch/``, not
+``chip_smoke.py`` and not the ``examples/torch_*.py``, imports ``jax`` or
+the JAX package ``repro``; every module imports on a host without a card,
+``nvcc`` or ``triton``, and importing builds no kernel."""
 import ast
 import os
 import pathlib
@@ -12,7 +12,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 # the modules of the collect -> learn slice, each under the scan above
 SLICE2 = ["utils/tree.py", "optim/optimizers.py", "envs/base.py",
@@ -28,6 +29,10 @@ SLICE3 = ["kernels/imag/ref.py", "kernels/imag/cuda.py", "kernels/imag/ops.py",
 # models/layers.py, models/lm.py and models/api.py)
 SLICE4 = ["kernels/ssd/ref.py", "kernels/ssd/cuda.py", "kernels/ssd/ops.py",
           "models/ssm.py", "configs/mamba2_2_7b.py"]
+# the engines slice: the clocks, the trainers and the launcher (it extends
+# core/workers.py and core/__init__.py)
+SLICE5 = ["core/clock.py", "core/runtime.py", "launch/train.py"]
+EXAMPLES = ["torch_quickstart.py", "torch_pr2_arm.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -46,9 +51,14 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("module", SLICE2 + SLICE3 + SLICE4)
+@pytest.mark.parametrize("module", SLICE2 + SLICE3 + SLICE4 + SLICE5)
 def test_slice_module_is_scanned(module):
     assert PORT / module in FILES
+
+
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_torch_example_is_scanned(example):
+    assert ROOT / "examples" / example in FILES
 
 
 def test_every_module_imports_without_jax_or_a_build():

@@ -869,3 +869,37 @@ def test_imag_kernel_at_other_member_depths(card, monkeypatch, depth, K, B,
         scale = max(1.0, w.abs().max().item())
         assert bool(torch.isfinite(g).all())
         assert (g - w).abs().max().item() <= IMAG_TOL * scale
+
+
+@pytest.mark.gpu
+def test_event_run_on_the_card_goes_through_the_kernels(card):
+    """A short event-mode ``AsyncTrainer`` run on the card (pendulum, a
+    small ensemble and policy): the run lands on its robot time and
+    trajectory count, both learners keep one input shape, every model
+    epoch launches ``gmm_equal`` and every ME-TRPO step ``imag_fused`` once
+    a horizon step."""
+    from repro_torch.core import AsyncTrainer, RunConfig
+    from repro_torch.envs import make_env
+    from repro_torch.mbrl import algos as A
+    from repro_torch.mbrl import dynamics as DYN
+    from repro_torch.mbrl import policy as PI
+    env = make_env("pendulum")
+    ens = DYN.EnsembleConfig(env.obs_dim, env.act_dim, hidden=32,
+                             n_models=2)
+    pol = PI.PolicyConfig(env.obs_dim, env.act_dim, hidden=16)
+    acfg = A.AlgoConfig(imagine_batch=16, imagine_horizon=15, n_models=2)
+    algo = A.make_algo(acfg, pol, env.reward, env.reset_batch)
+    tr = AsyncTrainer(env, ens, algo,
+                      RunConfig(total_trajs=5, seed=0, eval_rollouts=2))
+    g0, i0 = gmm_ops.equal_launches, imag_ops.launches
+    trace = tr.run()
+    torch.cuda.synchronize()
+    assert tr.device.type == "cuda"
+    assert trace[-1]["time"] == 5 * env.horizon * env.dt
+    assert trace[-1]["trajs"] == 5 == tr.data_server.total_pushed
+    assert tr.model_worker.compile_count() == 1
+    assert tr.policy_worker.compile_count() == 1
+    assert tr.model_worker.epochs > 0 and tr.policy_worker.steps > 0
+    assert gmm_ops.equal_launches - g0 >= 3 * tr.model_worker.epochs
+    assert imag_ops.launches - i0 == 15 * tr.policy_worker.steps
+    assert all(np.isfinite(r["eval_return"]) for r in trace)
