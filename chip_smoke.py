@@ -92,6 +92,30 @@ Phases, each printing one JSON line:
    on the card (pendulum, 3 members of hidden 64, a policy of 32, 48 × 40
    imagination): 120.0 s of robot time and the same launch checks,
    ``imag_fused`` at 40 launches a step.
+   The threads engine, on the same configuration: ``threads_paced``,
+   ``AsyncTrainer(mode="threads")`` with ``RunConfig(total_trajs=12,
+   seed=0, pace_collection=True, collect_speed=10.0)``, so each trajectory
+   takes 1.0 s of wall time; each role on its own CUDA stream, its steps
+   timed on the host without synchronising. Asserts exactly 12
+   trajectories, wall time at least the 12 s of collection (pacing held),
+   a model version and a policy step, one input shape on both learners,
+   each epoch's ``gmm_equal`` launches as its ring implies and 50
+   ``imag_fused`` launches a step; reports the wall / collection ratio
+   (the paper: near 1), policy steps (per trajectory, beside
+   ``event_run``'s), model epochs and the final versions.
+   ``ckpt_roundtrip``: that run's trained ensemble and policy (and a bf16
+   copy) through ``checkpoint.io`` under ``build/`` and back onto the
+   card, bit-equal. ``threads_fleet``: unpaced, 3 collectors of 5 robots
+   on 12 trajectories, the same checks and a partial grant.
+   ``threads_profile``: a short unpaced threads run under
+   ``torch.profiler``: the device's busy share over the run's wall time
+   and the share of kernel time that overlaps a kernel on another stream
+   (reported only). ``stream_handoff``: a push on one stream after a
+   ~0.1 s kernel, pulled and drained on another, must give the pushed
+   values; the unchanged ``pull_if_newer`` runs under
+   ``torch.cuda.set_sync_debug_mode("error")``. ``model_free``: the
+   model-free PPO baseline, two iterations on the card: finite returns,
+   the trace's time as accounted.
 10. ``ssm_model_check``: Mamba2-2.7B at full width, cut to 2 layers, f32:
    prefill(S) then decode(token S) against prefill(S + 1), and the kernel
    route against the plain scan.
@@ -105,13 +129,14 @@ Phases, each printing one JSON line:
    tokens, forward only: 64 launches, tokens/s, the scan's share of
    device time.
 13. ``kernels``: one entry per kernel, as the port's records expect;
-   ``gmm_equal`` and ``imag_fused`` also give their ``event_run``
-   launches.
+   ``gmm_equal`` and ``imag_fused`` also give their ``event_run`` and
+   ``threads_paced`` launches.
 
 Each kernel's launches are counted from 0 just before the phase that
 drives its path (``serve``, ``model_learn``, ``assigned_predict``,
 ``assigned_grad``, ``policy_improve``, each engine run of ``event_run``,
-``sequential_run``, ``quickstart``, ``ssm_serve``, ``ssm_forward``) and
+``sequential_run``, ``quickstart``, ``threads_paced``, ``threads_fleet``,
+``threads_profile``, ``ssm_serve``, ``ssm_forward``) and
 read just after it; comparison launches never count. The line before the
 last is the card's name and power limit from ``nvidia-smi``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -131,8 +156,10 @@ import dataclasses
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -200,6 +227,16 @@ ENGINE_TRAJS = 12
 # same 12 trajectories as the event run and its extra robot time is its
 # training alone
 SEQ_ROLLOUTS = 4
+# the threads engine: paced, 10 s of robot time a trajectory (horizon 100
+# x dt 0.1) in 1.0 s of wall time, so the 12 trajectories take >= 12 s
+THREADS_SPEED = 10.0
+# unpaced, three farms of five robots: grants of 5, 5 and a partial 2
+THREADS_FLEET = dict(n_collectors=3, envs_per_collector=5)
+THREADS_PROFILE_TRAJS = 12
+# ~0.1 s of the card's clock, queued before a push on the pusher's stream
+HANDOFF_SLEEP_CYCLES = 200_000_000
+# the model-free baseline: two iterations of 4 trajectories
+MODEL_FREE_TRAJS = 8
 
 
 def emit(obj) -> None:
@@ -1513,9 +1550,11 @@ def time_workers(trainer, gmm_ops, sync: bool) -> dict:
     overlap of one step's kernels with the next step's host code);
     without it they are the host's seconds alone and the run's own wall
     time stands. Each model epoch also records its ``gmm_equal`` launches
-    beside the count its ring implies."""
+    beside the count its ring implies (exact under the threads engine too:
+    only the model worker launches ``gmm_equal``)."""
     stats = {k: {"calls": 0, "work": 0, "s": 0.0}
              for k in ("collect", "model", "policy", "eval")}
+    lock = threading.Lock()     # a fleet's collectors share one record
     epochs = []
     workers = [("collect", c) for c in getattr(trainer, "collectors",
                                                 [trainer.collector])]
@@ -1533,10 +1572,11 @@ def time_workers(trainer, gmm_ops, sync: bool) -> dict:
             out = _call(*args)
             if sync:
                 torch.cuda.synchronize()
-            st = stats[_kind]
-            st["calls"] += 1
-            st["s"] += time.perf_counter() - t0
-            st["work"] += out is not None and out is not False
+            with lock:
+                st = stats[_kind]
+                st["calls"] += 1
+                st["s"] += time.perf_counter() - t0
+                st["work"] += out is not None and out is not False
             if _kind == "model" and out is not None:
                 epochs.append({
                     "launches": [gmm_ops.equal_launches - f0,
@@ -1670,6 +1710,328 @@ def quickstart(gmm_ops, imag_ops, **main_kw) -> dict:
         raise RuntimeError(f"quickstart: no line {want!r} in {lines}")
     return {**rec, "printed": lines}
 
+
+# ------------------------------------------------------ phase 9, threads
+
+def threads_run(name, gmm_ops, imag_ops, rc_kw: dict, **trainer_kw) -> tuple:
+    """``AsyncTrainer(mode="threads")`` on ``engine_parts`` through its entry
+    point, ``RunConfig(seed=0, **rc_kw)``; its workers' steps timed on the
+    host without synchronising (a device-wide synchronise would couple the
+    role streams). The launch counts go to 0 just before ``run`` and are
+    read just after. Asserts exactly ``total_trajs`` trajectories, split
+    over the fleet as the collectors counted them, trace times relative
+    and monotone, finite eval returns and, for the learners that worked,
+    one input shape, each epoch's ``gmm_equal`` launches as its ring
+    implies and 50 ``imag_fused`` launches a policy step. Returns the
+    trainer and the record."""
+    from repro_torch.core import AsyncTrainer, RunConfig
+    env, ens, acfg, algo = engine_parts()
+    rc = RunConfig(seed=0, **rc_kw)
+    trainer = AsyncTrainer(env, ens, algo, rc, mode="threads", **trainer_kw)
+    timing = time_workers(trainer, gmm_ops, sync=False)
+    gmm_ops.equal_launches = gmm_ops.equal_bwd_launches = 0
+    imag_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gmm = gmm_ops.equal_launches + gmm_ops.equal_bwd_launches
+    imag = imag_ops.launches
+    model, policy = trainer.model_worker, trainer.policy_worker
+    horizon = policy.algo.cfg.imagine_horizon
+    epochs, workers = timing["epochs"], timing["workers"]
+    per = [c.collected for c in trainer.collectors]
+    times = [r["time"] for r in trace]
+    rc = trainer.run_cfg
+    collect_s = (-(-rc.total_trajs // (rc.n_collectors
+                                       * rc.envs_per_collector))
+                 * env.horizon * env.dt / rc.collect_speed)
+    checks = {
+        f"exactly {rc.total_trajs} trajectories":
+            trainer.data_server.total_pushed == rc.total_trajs
+            and trace[-1]["trajs"] == rc.total_trajs,
+        "trajectories per collector sum to the total":
+            sum(per) == rc.total_trajs,
+        "trace times relative and monotone":
+            times == sorted(times) and 0.0 <= times[0]
+            and times[-1] <= wall,
+        "finite eval returns": all(np.isfinite(r["eval_return"])
+                                   for r in trace),
+        "at most one train_epoch shape": model.compile_count() <= 1,
+        "at most one improve shape": policy.compile_count() <= 1,
+        "every epoch's gmm_equal launches as its ring implies":
+            all(e["launches"] == e["want"] for e in epochs),
+        "gmm_equal launches = the epochs' sum":
+            gmm == sum(sum(e["want"]) for e in epochs),
+        "one epoch recorded per model epoch": len(epochs) == model.epochs,
+        f"imag_fused launches = policy steps x {horizon}":
+            imag == policy.steps * horizon,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{name} failed: {failed}; per collector {per}, "
+                           f"epochs {epochs}, trace {trace}")
+    return trainer, {
+        "engine": "AsyncTrainer", "mode": "threads", "env": LEARN_ENV,
+        "run_config": {k: getattr(rc, k) for k in (
+            "total_trajs", "collect_speed", "pace_collection",
+            "n_collectors", "envs_per_collector")},
+        "trajs": trace[-1]["trajs"], "trajs_per_collector": per,
+        "wall_s": wall, "collection_time_s": collect_s,
+        "wall_over_collection": wall / collect_s,
+        "model_epochs": model.epochs, "policy_steps": policy.steps,
+        "policy_steps_per_traj": policy.steps / rc.total_trajs,
+        "model_version": trainer.model_server.version,
+        "policy_version": trainer.policy_server.version,
+        "evals": len(trace), "worker_wall_s": {k: w["s"]
+                                               for k, w in workers.items()},
+        "worker_calls": workers, "gmm_equal_launches": gmm,
+        "imag_fused_launches": imag,
+        "launches_per_epoch": sorted({tuple(e["want"]) for e in epochs}),
+        "shapes": [model.compile_count(), policy.compile_count()],
+        "eval_returns": [r["eval_return"] for r in trace],
+        "trace_time": times}
+
+
+def threads_paced(gmm_ops, imag_ops, **trainer_kw) -> tuple:
+    """The paper's claim on the wall clock: 12 paced trajectories, each
+    10 s of robot time in 1.0 s of wall time. Beyond ``threads_run``'s
+    checks: wall time at least the collection time, and both learners
+    worked."""
+    trainer, rec = threads_run(
+        "threads_paced", gmm_ops, imag_ops,
+        dict(total_trajs=ENGINE_TRAJS, pace_collection=True,
+             collect_speed=THREADS_SPEED), **trainer_kw)
+    checks = {
+        "wall time >= collection time (pacing held)":
+            rec["wall_s"] >= rec["collection_time_s"],
+        "a model version": rec["model_version"] >= 1 and rec["model_epochs"]
+            >= 1,
+        "a policy step": rec["policy_steps"] >= 1,
+        "one train_epoch / improve shape": rec["shapes"] == [1, 1],
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"threads_paced failed: {failed}; {rec}")
+    return trainer, rec
+
+
+def threads_fleet(gmm_ops, imag_ops, **trainer_kw) -> dict:
+    """Unpaced, three collectors of five robots on 12 trajectories: the
+    grants are 5, 5 and a partial 2, so one collector's count is not a
+    multiple of 5."""
+    _, rec = threads_run("threads_fleet", gmm_ops, imag_ops,
+                         dict(total_trajs=ENGINE_TRAJS), **THREADS_FLEET,
+                         **trainer_kw)
+    lanes = THREADS_FLEET["envs_per_collector"]
+    if not any(n % lanes for n in rec["trajs_per_collector"]):
+        raise RuntimeError(f"threads_fleet: no partial grant in "
+                           f"{rec['trajs_per_collector']}")
+    return rec
+
+
+def stream_intervals(trace_path: Path) -> list:
+    """(start µs, end µs, stream) of every kernel in a chrome trace."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    return [(e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream"))
+            for e in events if e.get("cat") == "kernel" and "dur" in e]
+
+
+def overlap_stats(intervals) -> dict:
+    """The union of the kernel intervals (device busy), and the kernel
+    time during which a kernel on another stream also ran, by a sweep
+    over the interval ends."""
+    points = sorted([(a, 1, s) for a, b, s in intervals]
+                    + [(b, -1, s) for a, b, s in intervals],
+                    key=lambda p: (p[0], p[1]))
+    active, union, overlap, last = {}, 0.0, 0.0, None
+    for t, d, s in points:
+        live = [k for k, n in active.items() if n > 0]
+        if last is not None and live:
+            union += t - last
+            if len(live) > 1:
+                overlap += (t - last) * len(live)
+        active[s] = active.get(s, 0) + d
+        last = t
+    total = sum(b - a for a, b, _ in intervals)
+    by_stream = {}
+    for a, b, s in intervals:
+        by_stream[str(s)] = by_stream.get(str(s), 0.0) + (b - a) / 1e3
+    return {"kernels": len(intervals), "kernel_ms": total / 1e3,
+            "busy_ms": union / 1e3,
+            "overlap_share": overlap / total if total else 0.0,
+            "span_ms": (max(b for _, b, _ in intervals)
+                        - min(a for a, _, _ in intervals)) / 1e3,
+            "kernel_ms_by_stream": by_stream}
+
+
+def threads_profile(gmm_ops, imag_ops, tries: int = 3, **trainer_kw) -> dict:
+    """One short unpaced threads run (``THREADS_PROFILE_TRAJS``
+    trajectories) under ``torch.profiler`` with CUDA activity, its trace
+    exported to ``build/``: the device's busy share over the run's wall
+    window (the union of kernel intervals over the host's wall time), and
+    the share of kernel time that overlaps a kernel on another stream.
+    Reported, not asserted; a session without kernels is run again, with
+    CPU activity added (a larger trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    path = ROOT / "build" / "threads_profile.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    for i in range(tries):
+        activities = [ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if i else [])
+        with profile(activities=activities) as prof:
+            trainer, rec = threads_run(
+                "threads_profile", gmm_ops, imag_ops,
+                dict(total_trajs=THREADS_PROFILE_TRAJS), **trainer_kw)
+        prof.export_chrome_trace(str(path))
+        intervals = stream_intervals(path)
+        path.unlink()
+        if intervals:
+            stats = overlap_stats(intervals)
+            wall_ms = rec["wall_s"] * 1e3
+            return {"total_trajs": THREADS_PROFILE_TRAJS, "wall_ms": wall_ms,
+                    "activities": [str(a) for a in activities],
+                    "device_busy_share": stats["busy_ms"] / wall_ms,
+                    "busy_share_of_kernel_span":
+                        stats["busy_ms"] / stats["span_ms"],
+                    "streams": len(stats["kernel_ms_by_stream"]), **stats,
+                    "model_epochs": rec["model_epochs"],
+                    "policy_steps": rec["policy_steps"]}
+    raise RuntimeError(f"threads_profile: no kernel in {tries} sessions")
+
+
+def stream_handoff(ParameterServer, DataServer) -> dict:
+    """Push on one stream and pull on another, a ~0.1 s kernel
+    (``torch.cuda._sleep``) queued on the pusher's stream before the
+    values it pushes: the puller's reads must see the pushed values (they
+    read freed NaN-filled memory if the pull does not wait for the push's
+    event). The same for a ``DataServer`` batch and its ``drain``. Then the
+    unchanged ``pull_if_newer`` under ``torch.cuda.set_sync_debug_mode
+    ("error")``, which raises on any host sync."""
+    dev = torch.device("cuda")
+    n = 1 << 24
+    gen = torch.Generator(device=dev).manual_seed(7)
+    src = torch.randn(n, generator=gen, device=dev)
+    want = src * 2 + 1
+    push_s, pull_s = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    params, data = ParameterServer(), DataServer()
+    with torch.cuda.stream(push_s):
+        junk = torch.full((4 * n,), float("nan"), device=dev)
+        del junk                # the pusher's pool now holds NaNs
+        torch.cuda._sleep(HANDOFF_SLEEP_CYCLES)
+        version = params.push({"w": src * 2 + 1})
+        batch = {"obs": (src * 2 + 1).reshape(4, -1)}
+        data.push_batch(batch, 4)
+        del batch
+    t0 = time.perf_counter()
+    with torch.cuda.stream(pull_s):
+        got, ver = params.pull_if_newer(0)
+        out = got["w"] * 1.0
+        lanes = data.drain()
+        drained = torch.cat([lane["obs"] for lane in lanes]) * 1.0
+    pull_ms = (time.perf_counter() - t0) * 1e3
+    del got, lanes
+    torch.cuda.synchronize()
+    checks = {"pulled values equal the pushed ones": torch.equal(out, want),
+              "drained values equal the pushed ones":
+                  torch.equal(drained, want),
+              "the pull handed over version 1": ver == version == 1}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        unchanged = [params.pull_if_newer(ver)[0] for _ in range(1000)]
+        unchanged_us = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    checks["the unchanged pull hands out nothing, with no host sync"] = \
+        all(v is None for v in unchanged)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"stream_handoff failed: {failed}")
+    return {"elements": n, "sleep_cycles": HANDOFF_SLEEP_CYCLES,
+            "pull_and_drain_host_ms": pull_ms,
+            "unchanged_pull_us": unchanged_us, "checks": list(checks)}
+
+
+def ckpt_roundtrip(trainer) -> dict:
+    """The trained ensemble and policy of a run's servers, with their
+    versions and a bf16 copy of the policy, saved by
+    ``checkpoint.io.save_pytree`` under ``build/`` and restored onto the
+    card: every leaf bit-equal, of its dtype, on the card."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.utils.tree import tree_map
+    model, mv = trainer.model_server.pull()
+    policy, pv = trainer.policy_server.pull()
+    dev = torch.device("cuda")
+    tree = {"model": model, "model_version": torch.tensor(mv, device=dev),
+            "policy": policy, "policy_version": torch.tensor(pv, device=dev),
+            "policy_bf16": tree_map(lambda t: t.to(torch.bfloat16), policy)}
+    path = ROOT / "build" / "ckpt_roundtrip"
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        ckpt_io.save_pytree(path, tree, step=mv, keep=2)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out, step = ckpt_io.restore(path, tree)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(f.stat().st_size for f in path.rglob("*")
+                     if f.is_file())
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    pairs = list(zip(ckpt_io.flatten(tree), ckpt_io.flatten(out)))
+    bad = [i for i, (a, b) in enumerate(pairs)
+           if not (b.is_cuda and a.dtype == b.dtype and torch.equal(
+               a.to(b.device), b))]
+    if bad or step != mv:
+        raise RuntimeError(f"ckpt_roundtrip: leaves {bad} differ, step "
+                           f"{step} for version {mv}")
+    return {"leaves": len(pairs), "bytes": nbytes, "step": step,
+            "model_version": mv, "policy_version": pv, "save_ms": save_ms,
+            "restore_ms": restore_ms}
+
+
+def model_free(device=None) -> dict:
+    """The model-free PPO baseline on the card: ``ModelFreeTrainer`` on the
+    engines' env and policy, two iterations of 4 trajectories and 10 PPO
+    steps. Asserts finite returns, the trajectories, and the trace's time
+    as the reference accounts it (collection plus a policy-step time per
+    PPO step)."""
+    from repro_torch.core import RunConfig
+    from repro_torch.envs import make_env
+    from repro_torch.mbrl import policy as PI
+    from repro_torch.mbrl.model_free import ModelFreeTrainer
+    env = make_env(LEARN_ENV)
+    pol = PI.PolicyConfig(env.obs_dim, env.act_dim, hidden=POLICY_HIDDEN)
+    rc = RunConfig(total_trajs=MODEL_FREE_TRAJS, seed=0)
+    trainer = ModelFreeTrainer(env, pol, rc, algo="ppo", trajs_per_iter=4,
+                               device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_iter = 4 * env.horizon * env.dt + 10 * rc.policy_step_time
+    want_t = [per_iter * (i + 1) for i in range(len(trace))]
+    checks = {
+        "finite eval returns": all(np.isfinite(r["eval_return"])
+                                   for r in trace),
+        "trajectories 4 an iteration": [r["trajs"] for r in trace]
+            == [4 * (i + 1) for i in range(len(trace))],
+        "time = collection + PPO steps x policy_step_time":
+            all(abs(r["time"] - t) <= 1e-9 for r, t in zip(trace, want_t)),
+        "on the trainer's device": all(
+            t.device.type == trainer.device.type
+            for t in trainer.params["w"]),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"model_free failed: {failed}; {trace}")
+    return {"env": LEARN_ENV, "algo": "ppo", "policy_hidden": POLICY_HIDDEN,
+            "iterations": trainer.iterations, "wall_s": wall,
+            "trace": trace}
 
 # ---------------------------------------------------------------- phase 3
 
@@ -1968,7 +2330,7 @@ def main() -> int:
     from repro_torch.configs.glm4_9b import CONFIG
     from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA
     from repro_torch.core import AsyncTrainer, SequentialTrainer
-    from repro_torch.core.servers import ParameterServer
+    from repro_torch.core.servers import DataServer, ParameterServer
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -2070,6 +2432,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    paced_trainer, paced = threads_paced(gmm_ops, imag_ops)
+    emit({"phase": "threads_paced", **paced,
+          "policy_steps_per_traj_event_run":
+              event["policy_steps"] / event["trajs"]})
+    emit({"phase": "ckpt_roundtrip", **ckpt_roundtrip(paced_trainer)})
+    del paced_trainer
+    emit({"phase": "threads_fleet", **threads_fleet(gmm_ops, imag_ops)})
+    emit({"phase": "threads_profile", **threads_profile(gmm_ops, imag_ops)})
+    emit({"phase": "stream_handoff",
+          **stream_handoff(ParameterServer, DataServer)})
+    emit({"phase": "model_free", **model_free()})
+    gc.collect()
+    torch.cuda.empty_cache()
+
     emit({"phase": "ssm_model_check",
           **check_ssm_model(MAMBA, init_params, api, InputShape)})
     (model, dec, cache, tok), ssm_served = ssm_serve(
@@ -2106,6 +2482,7 @@ def main() -> int:
         "launches_fwd": learned["gmm_equal_launches_fwd"],
         "launches_bwd": learned["gmm_equal_launches_bwd"],
         "launches_event_run": event["gmm_equal_launches"],
+        "launches_threads_run": paced["gmm_equal_launches"],
         "max_abs_err": max(r["max_abs_err"]
                            for r in gmm_rows["equal"].values()),
         "ms": eq["ms"], "plain_ms": eq["plain_ms"],
@@ -2136,6 +2513,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/imag/pallas.py:97",
         "launches": improved["imag_fused_launches"],
         "launches_event_run": event["imag_fused_launches"],
+        "launches_threads_run": paced["imag_fused_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in imag_rows.values()),
         "ms": im["ms"], "plain_ms": im["plain_ms"],
         "bound_ms": im["bound_ms"], "bound_by": im["bound_by"],

@@ -5,7 +5,9 @@ from repro_torch.core.runtime import (AsyncTrainer, PartialAsyncDataPolicy,
                                       PartialAsyncModelPolicy, RunConfig,
                                       SequentialTrainer, clear_eval_cache)
 from repro_torch.core.servers import (BackpressureError, DataServer,
-                                      ParameterServer, ReplayBuffer)
+                                      DataTransport, LocalBuffer,
+                                      ParameterServer, ParameterTransport,
+                                      ReplayBuffer)
 from repro_torch.core.workers import (DataCollectionWorker,
                                       ExplorationSchedule,
                                       ModelLearningWorker,

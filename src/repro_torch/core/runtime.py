@@ -1,12 +1,27 @@
-"""Training engines: the port of ``repro/core/runtime.py``, event mode.
+"""Training engines: the port of ``repro/core/runtime.py``, event and
+threads modes.
 
-* ``AsyncTrainer`` — the paper's contribution (Fig. 1a), under the
-  deterministic discrete-event engine (``mode="event"``). Each worker has
-  a virtual-time cursor; the engine always advances the worker with the
-  SMALLEST cursor, so relative speeds (robot control frequency vs.
-  compute) are reproduced exactly. It runs a FLEET of ``n_collectors``
-  data-collection workers, each an env farm of ``envs_per_collector``
-  robots, against the one global ``total_trajs`` criterion.
+* ``AsyncTrainer`` — the paper's contribution (Fig. 1a). It runs a FLEET of
+  ``n_collectors`` data-collection workers, each an env farm of
+  ``envs_per_collector`` robots, against the one global ``total_trajs``
+  criterion, in one of two modes sharing the same worker objects:
+    - ``mode="event"``: the deterministic discrete-event engine. Each
+      worker has a virtual-time cursor; the engine always advances the
+      worker with the SMALLEST cursor, so relative speeds (robot control
+      frequency vs. compute) are reproduced exactly.
+    - ``mode="threads"``: real host threads on the wall clock, one per
+      collector plus the model and the policy worker, all at once. Each
+      collector claims its batch's tickets from the data server before it
+      collects, so N racing collectors land on ``total_trajs`` EXACTLY;
+      ``RunConfig.pace_collection`` sleeps out each batch's robot time,
+      so the wall clock runs at the robots' rate. Trace times are seconds
+      since the run started. On CUDA each role (each collector, the model
+      worker, the policy worker with its evals) runs on a
+      ``torch.cuda.Stream`` of its own, so one worker's host sync (the
+      model worker reads its validation loss) waits for its own kernels
+      only; the servers' events order the handoffs between streams
+      (``core/servers.py``), and nothing on a worker's path synchronises
+      the whole device.
 * ``SequentialTrainer`` — the classic synchronous baseline (Fig. 1b).
 * ``PartialAsyncModelPolicy`` — §5.2 ablation (interleave model/policy).
 * ``PartialAsyncDataPolicy`` — §5.3 ablation (interleave data/policy).
@@ -31,15 +46,17 @@ eval. Collector ``i`` draws from ``collector_generator(collector_seed,
 i)``; the model and policy workers seed their own generators with theirs;
 the eval generator lives on the trainer's device.
 
-Not ported (each raises, naming ROADMAP.md): ``mode="threads"`` and
-``mode="procs"``, ``transport="tcp"``, role meshes (``mesh=``,
-``roles=``) and ``supervisor=``. ``RunConfig``'s fields for them are kept,
-with the reference's names and defaults, and ignored, as the reference's
-event engine ignores them.
+Not ported (each raises, naming ROADMAP.md): ``mode="procs"``,
+``transport="tcp"``, role meshes (``mesh=``, ``roles=``) and
+``supervisor=``. ``RunConfig``'s fields for them are kept, with the
+reference's names and defaults, and ignored.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+import time
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -77,10 +94,13 @@ class RunConfig:
     # whole batch at once; a step claims min(B, remaining), so the global
     # criterion still lands exactly
     envs_per_collector: int = 1
-    # the fields below configure the threads and procs engines and the
-    # tcp transport, none of which is ported: kept so that one config
-    # means the same run in both packages, and ignored here
+    # threads mode: sleep out each trajectory's robot time (horizon * dt /
+    # collect_speed) so wall-clock reproduces the paper's real-robot rate
+    # instead of racing simulated rollouts at compute speed
     pace_collection: bool = False
+    # the fields below configure the procs engine and the tcp transport,
+    # neither of which is ported: kept so that one config means the same
+    # run in both packages, and ignored here
     push_timeout_s: float = 30.0
     snapshot_every_s: float = 2.0
     ckpt_dir: Optional[str] = None
@@ -101,8 +121,8 @@ def run_seeds(seed: int) -> tuple:
 
 
 def _not_ported(what: str) -> str:
-    return (f"{what} is not ported to repro_torch yet: only the event "
-            "engine is (ROADMAP.md §1, open items)")
+    return (f"{what} is not ported to repro_torch yet: only the event and "
+            "threads engines are (ROADMAP.md §1, open items)")
 
 
 def clear_eval_cache() -> None:
@@ -115,12 +135,14 @@ def _make_eval(env, n: int) -> Callable:
     def evaluate(policy_params, *, generator=None, reset_draws=None):
         """Mean over ``n`` rollouts of the summed reward under the
         deterministic policy, all rollouts stepped together on the
-        policy's device. ``reset_draws`` (n, *reset_shape) default to
-        draws from ``generator``."""
+        policy's device in the policy's dtype. ``reset_draws`` (n,
+        *reset_shape) default to draws from ``generator``."""
         if reset_draws is None:
             reset_draws = env.reset_draws(n, generator)
-        dev = tree_leaves(policy_params)[0].device
-        noise = torch.zeros((env.horizon, n, env.act_dim), device=dev)
+        leaf = tree_leaves(policy_params)[0]
+        reset_draws = reset_draws.to(leaf.device, leaf.dtype)
+        noise = torch.zeros((env.horizon, n, env.act_dim), device=leaf.device,
+                            dtype=leaf.dtype)
         traj = env.rollout_batch(PI.deterministic_action, policy_params, n,
                                  reset_draws=reset_draws, noise=noise)
         return traj["rew"].sum(1).mean()
@@ -167,14 +189,15 @@ class AsyncTrainer:
         ``run_cfg.envs_per_collector``).
 
         ``device``: where every worker and the eval run; None means CUDA.
-        ``mode``, ``mesh``, ``roles`` and ``supervisor`` take only their
-        defaults: the engines they select are not ported."""
+        ``mode``: ``"event"`` or ``"threads"``. ``mesh``, ``roles`` and
+        ``supervisor`` take only their defaults: what they select is not
+        ported."""
         if supervisor is not None and mode != "procs":
             raise ValueError(
                 f'supervisor= hooks into the mode="procs" supervision '
                 f"loop only (got mode={mode!r}); "
                 + _not_ported('mode="procs"'))
-        if mode != "event":
+        if mode not in ("event", "threads"):
             raise NotImplementedError(_not_ported(f"mode={mode!r}"))
         if mesh is not None or roles is not None:
             raise NotImplementedError(
@@ -198,13 +221,16 @@ class AsyncTrainer:
         if run_cfg.transport not in ("shm", "tcp"):
             raise ValueError(f"transport must be 'shm' or 'tcp', got "
                              f"{run_cfg.transport!r}")
+        if run_cfg.transport == "tcp" and mode == "threads":
+            raise NotImplementedError(_not_ported('transport="tcp"'))
         if run_cfg.transport == "tcp":
             raise ValueError(
                 'transport="tcp" needs a real engine (mode="threads" or '
                 '"procs"): the event engine is a single-process virtual-'
                 "clock simulation with nothing to transport; "
-                + _not_ported("the threads and procs engines"))
+                + _not_ported('transport="tcp"'))
         self.run_cfg = run_cfg
+        self.mode = mode
         self.exploration = exploration if exploration is not None else (
             ExplorationSchedule(tuple(run_cfg.collect_noise))
             if run_cfg.collect_noise else ExplorationSchedule())
@@ -239,6 +265,8 @@ class AsyncTrainer:
         self.recorder = _Recorder(env, run_cfg.eval_rollouts)
 
     def run(self) -> List[Dict[str, float]]:
+        if self.mode == "threads":
+            return self._run_threads()
         return self._run_event()
 
     def _run_event(self):
@@ -289,6 +317,123 @@ class AsyncTrainer:
                              self.policy_worker.state["policy"],
                              self._eval_gen)
         return self.recorder.trace
+
+    # ----------------------------------------------------------- threads
+    def _run_threads(self):
+        rc = self.run_cfg
+        stop = threading.Event()
+        t0 = time.monotonic()   # all trace rows are relative to t0
+        ds = self.data_server
+        # fleet stopping criterion: each collector CLAIMS its slots before
+        # collecting (one lock in the server), so the run finishes with
+        # total_pushed EXACTLY total_trajs
+        ds.set_target(rc.total_trajs)
+        errors: List[tuple] = []
+        roles = [f"collect:{w.collector_id}" for w in self.collectors]
+        roles += ["model", "policy"]
+        streams = self._role_streams(roles)
+
+        def guarded(role, body):
+            # a dead thread cannot push its claimed tickets, so the run
+            # would otherwise end short with only a stderr traceback:
+            # record the error, stop the fleet, raise it from this thread
+            s = streams[role]
+            try:
+                with (contextlib.nullcontext() if s is None
+                      else torch.cuda.stream(s)):
+                    body()
+            except Exception as e:
+                errors.append((role, e))
+                stop.set()
+
+        def collect_loop(w):
+            while not stop.is_set():
+                # env farm: claim up to a whole batch of slots; the server
+                # grants min(B, remaining), so the last batch shrinks to
+                # land the criterion exactly
+                g = ds.try_claim(w.collector_id, k=w.envs_per_step)
+                if not g:
+                    return
+                t_step = time.monotonic()
+                dur = w.step(g)
+                if rc.pace_collection and dur is not None:
+                    # the robot's control frequency: a batch occupies `dur`
+                    # seconds of wall time however fast the simulation runs
+                    time.sleep(max(dur - (time.monotonic() - t_step), 0.0))
+
+        def model_loop():
+            while not stop.is_set():
+                if self.model_worker.step() is None:
+                    time.sleep(0.002)
+
+        def policy_loop():
+            n = 0
+            while not stop.is_set():
+                if self.policy_worker.step():
+                    n += 1
+                    if n % rc.eval_every_policy_steps == 0:
+                        self.recorder.record(
+                            time.monotonic() - t0, ds.total_pushed,
+                            self.policy_worker.state["policy"],
+                            self._eval_gen)
+                else:
+                    time.sleep(0.002)
+
+        collect_threads = [
+            threading.Thread(target=guarded, daemon=True, name=role,
+                             args=(role, lambda w=w: collect_loop(w)))
+            for role, w in zip(roles, self.collectors)]
+        learner_threads = [
+            threading.Thread(target=guarded, daemon=True, name=role,
+                             args=(role, body))
+            for role, body in (("model", model_loop),
+                               ("policy", policy_loop))]
+        for th in collect_threads + learner_threads:
+            th.start()
+        for th in collect_threads:  # every claimed slot has been pushed
+            th.join()               # once the whole fleet exits
+        stop.set()
+        for th in learner_threads:
+            th.join(timeout=10)
+        stuck = [th.name for th in learner_threads if th.is_alive()]
+        if stuck:
+            raise RuntimeError(f"{stuck} did not stop within 10 s of the "
+                               "end of collection")
+        self._join_streams(streams)
+        if errors:
+            role, err = errors[0]
+            if role.startswith("collect:"):
+                raise RuntimeError(
+                    f"collector {role.split(':', 1)[1]} failed mid-run; the "
+                    f"fleet stopped at {ds.total_pushed}/{rc.total_trajs} "
+                    "trajectories") from err
+            raise RuntimeError(f"the {role} worker failed mid-run") from err
+        self.recorder.record(time.monotonic() - t0, ds.total_pushed,
+                             self.policy_worker.state["policy"],
+                             self._eval_gen)
+        return self.recorder.trace
+
+    def _role_streams(self, roles) -> Dict[str, Optional[torch.cuda.Stream]]:
+        """A CUDA stream per role, each ordered after the work the caller
+        has queued so far (the workers' initial params); None for every
+        role on the CPU."""
+        if self.device.type != "cuda":
+            return {r: None for r in roles}
+        here = torch.cuda.current_stream(self.device)
+        out = {}
+        for r in roles:
+            out[r] = torch.cuda.Stream(device=self.device)
+            out[r].wait_stream(here)
+        return out
+
+    def _join_streams(self, streams) -> None:
+        """Order the caller's stream after every role's work, without a
+        host sync."""
+        if self.device.type != "cuda":
+            return
+        here = torch.cuda.current_stream(self.device)
+        for s in streams.values():
+            here.wait_stream(s)
 
 
 class SequentialTrainer:

@@ -1,5 +1,6 @@
 """Servers of the paper's Fig. 1a: the port of the in-process
-``ParameterServer``, ``DataServer``, ``ReplayBuffer`` and of
+``ParameterServer``, ``DataServer``, ``ReplayBuffer``, ``LocalBuffer``, the
+``ParameterTransport`` / ``DataTransport`` protocols and
 ``BackpressureError`` in ``repro/core/servers.py``.
 
 Values stay on the device. ``ParameterServer.push`` snapshots every tensor
@@ -7,17 +8,101 @@ of a tree (a serving state dict, or an MBRL tree of lists and dicts) with a
 device copy (``clone``), so a published version is isolated from buffers
 the pusher goes on to update in place. ``pull_if_newer`` on an unchanged
 version is a lock and an integer compare: no copy, no tree traversal, no
-host sync.
+host sync. ``pull_host`` is the one device->host hop, for checkpoints.
+
+Across CUDA streams. The threads engine runs each worker on a stream of its
+own, so a value pushed from one stream is read from another. A push records
+a ``torch.cuda.Event`` on the pusher's current stream after its copy (the
+data server: after the pusher's last write); a pull that hands the value out
+makes the puller's current stream wait on that event and marks every CUDA
+tensor it hands out as used by that stream (``record_stream``), so the
+caching allocator does not give the memory of a superseded version back to
+the pusher's stream while the puller's kernels may still read it. Neither
+step waits on the host. On the CPU there is no event and nothing to do.
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import (Any, Dict, List, Optional, Protocol, Tuple,
+                    runtime_checkable)
 
+import numpy as np
 import torch
 
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+
+@runtime_checkable
+class ParameterTransport(Protocol):
+    """What every parameter store guarantees (the reference's seam):
+
+    * ``push(value) -> version``: publish atomically; each push bumps the
+      version by 1.
+    * ``pull_if_newer(version) -> (value|None, version)``: the unchanged
+      path transfers nothing.
+    * ``pull() -> (value|None, version)``: unconditional latest.
+    * ``pull_host() -> (host value|None, version)``: the only device->host
+      boundary (checkpoints).
+    * ``version -> int``: 0 means nothing pushed yet.
+    """
+
+    def push(self, value) -> int: ...
+    def pull(self): ...
+    def pull_if_newer(self, version: int): ...
+    def pull_host(self): ...
+    @property
+    def version(self) -> int: ...
+
+
+@runtime_checkable
+class DataTransport(Protocol):
+    """What every trajectory data server guarantees (the reference's seam):
+    multi-producer ``push`` / ``push_batch`` with an exact ``total_pushed``;
+    ``try_claim`` grants ``min(k, remaining)`` toward the armed target;
+    ``refund_inflight`` returns a dead collector's unpushed tickets;
+    ``drain`` moves everything queued to the caller."""
+
+    def push(self, traj, *, collector_id: int = 0) -> int: ...
+    def push_batch(self, batch, n: int, *, collector_id: int = 0) -> int: ...
+    def set_target(self, total: int) -> None: ...
+    def try_claim(self, collector_id: int = 0, k: int = 1) -> int: ...
+    def refund_inflight(self, collector_id: int) -> int: ...
+    def drain(self) -> List[Any]: ...
+    @property
+    def total_pushed(self) -> int: ...
+    def __len__(self) -> int: ...
+
+
+def _ready_event(value) -> Optional["torch.cuda.Event"]:
+    """An event recorded on the current stream of the first CUDA tensor's
+    device, once the work queued so far (the pusher's writes) is done; None
+    for a tree with no CUDA tensor."""
+    for leaf in tree_leaves(value):
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(leaf.device))
+            return ev
+    return None
+
+
+def _hand_over(values, events) -> None:
+    """Make the caller's current stream wait on each event, and mark every
+    CUDA tensor of ``values`` as used by that stream."""
+    if not events:
+        return
+    stream = torch.cuda.current_stream()
+    for ev in events:
+        stream.wait_event(ev)
+    for leaf in tree_leaves(values):
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            leaf.record_stream(stream)
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.detach().to("cpu", copy=True).numpy()
 
 
 class ParameterServer:
@@ -27,6 +112,7 @@ class ParameterServer:
     def __init__(self):
         self._lock = threading.Lock()
         self._value = None
+        self._ready = None
         self._version = 0
 
     @staticmethod
@@ -36,15 +122,20 @@ class ParameterServer:
 
     def push(self, value) -> int:
         snap = self._snapshot(value)    # copy outside the lock
+        ready = _ready_event(snap)
         with self._lock:
             self._value = snap
+            self._ready = ready
             self._version += 1
             return self._version
 
     def pull(self):
         """Returns (value, version); value is None until the first push."""
         with self._lock:
-            return self._value, self._version
+            value, ready, version = self._value, self._ready, self._version
+        if value is not None and ready is not None:
+            _hand_over(value, (ready,))
+        return value, version
 
     def pull_if_newer(self, version: int):
         """(value, current_version) when the store holds something newer
@@ -53,7 +144,21 @@ class ParameterServer:
         with self._lock:
             if self._version == version or self._value is None:
                 return None, self._version
-            return self._value, self._version
+            value, ready, version = self._value, self._ready, self._version
+        if ready is not None:
+            _hand_over(value, (ready,))
+        return value, version
+
+    def pull_host(self):
+        """(host numpy tree, version), or (None, version) before the first
+        push: the one device->host copy of the store, for checkpoints. The
+        arrays are the caller's own copies; bf16 leaves, which numpy cannot
+        hold, come back widened to float32 (exactly)."""
+        with self._lock:
+            value, version = self._value, self._version
+        if value is None:
+            return None, version
+        return tree_map(_host_copy, value), version
 
     @property
     def version(self) -> int:
@@ -77,21 +182,25 @@ class DataServer:
     slots under the lock, so a fleet of farms lands on ``total_pushed ==
     n`` EXACTLY. A denied claim sleeps ``claim_backoff`` seconds before
     returning. Pushed trajectories are stored by reference (device
-    tensors, no host copy); a pushed batch is unstacked into per-lane
-    views."""
+    tensors, no host copy), each with the event of its push; a pushed batch
+    is unstacked into per-lane views. ``drain`` hands them to the caller's
+    stream (see the module docstring)."""
 
     def __init__(self, *, claim_backoff: float = 0.002):
         self.claim_backoff = float(claim_backoff)
         self._lock = threading.Lock()
         self._items: List[Any] = []
+        self._events: List[Any] = []     # one per push, or None
         self._total = 0
         self._target: Optional[int] = None
         self._tickets = 0
         self._inflight: Dict[int, int] = {}
 
     def push(self, traj, *, collector_id: int = 0) -> int:
+        ready = _ready_event(traj)
         with self._lock:
             self._items.append(traj)
+            self._events.append(ready)
             self._total += 1
             self._dec_inflight(collector_id, 1)
             return self._total
@@ -101,8 +210,10 @@ class DataServer:
         (n, H, ...) tensors — a farm step's output). Consumers see
         per-trajectory dicts; ``total_pushed`` moves by n in one step."""
         lanes = [{k: v[i] for k, v in batch.items()} for i in range(n)]
+        ready = _ready_event(batch)
         with self._lock:
             self._items.extend(lanes)
+            self._events.append(ready)
             self._total += n
             self._dec_inflight(collector_id, n)
             return self._total
@@ -151,7 +262,9 @@ class DataServer:
         """Move ALL pending trajectories to the caller (empties server)."""
         with self._lock:
             items, self._items = self._items, []
-            return items
+            events, self._events = self._events, []
+        _hand_over(items, [ev for ev in events if ev is not None])
+        return items
 
     @property
     def total_pushed(self) -> int:
@@ -316,3 +429,58 @@ class ReplayBuffer:
     def total_seen(self) -> int:
         """Total trajectories ever inserted (incl. evicted ones)."""
         return self._trajs
+
+
+class LocalBuffer:
+    """Legacy fixed-size FIFO list buffer with a held-out validation split.
+
+    Superseded on the hot path by :class:`ReplayBuffer` (static shapes, no
+    per-epoch concatenate); kept for tooling that wants host-side
+    trajectory lists. Every ``round(1 / holdout_frac)``-th trajectory goes
+    to the validation list (at most ``max(max_trajs // 4, 1)``), the rest
+    to the training list (at most ``max_trajs``), oldest evicted first."""
+
+    def __init__(self, max_trajs: int = 200, holdout_frac: float = 0.2):
+        self.max_trajs = max_trajs
+        self.holdout_frac = holdout_frac
+        self._train: List[Any] = []
+        self._val: List[Any] = []
+        self._count = 0
+
+    def extend(self, trajs) -> int:
+        trajs = list(trajs)
+        for t in trajs:
+            self._count += 1
+            # deterministic interleave keeps val non-empty and ~frac
+            if self.holdout_frac > 0 and self._count % max(
+                    int(round(1 / self.holdout_frac)), 2) == 0:
+                self._val.append(t)
+                if len(self._val) > max(self.max_trajs // 4, 1):
+                    self._val.pop(0)
+            else:
+                self._train.append(t)
+                if len(self._train) > self.max_trajs:
+                    self._train.pop(0)
+        return len(trajs)
+
+    @staticmethod
+    def _stack(items):
+        if not items:
+            return None
+        return {k: np.concatenate([np.asarray(
+            t[k].detach().cpu() if isinstance(t[k], torch.Tensor) else t[k])
+            for t in items], axis=0) for k in items[0]}
+
+    def train_arrays(self):
+        return self._stack(self._train)
+
+    def val_arrays(self):
+        return self._stack(self._val if self._val else self._train[-1:])
+
+    @property
+    def n_train(self):
+        return len(self._train)
+
+    @property
+    def total_seen(self):
+        return self._count

@@ -6,7 +6,9 @@ interface, so it compiles in seconds without PyTorch's headers into
 hash covers the source and the flags, so an edited source never loads a
 stale library. Nothing builds at import time: a kernel's wrapper calls
 :func:`load` at its first launch, and ``chip_smoke.py`` calls :func:`build`
-on every source at once to compile them in parallel.
+on every source at once to compile them in parallel. :func:`load` is safe
+to call from many threads: the first caller builds and loads, the others
+wait for it.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -26,6 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[Path, ctypes.CDLL] = {}
+# held around the check, the build and the load: two threads reaching a
+# kernel's first launch together would otherwise both run nvcc into the
+# same temporary file, and one's cleanup would delete the other's output
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -107,9 +114,11 @@ def build(sources: Iterable[Path]) -> Dict[Path, dict]:
 
 
 def load(source: Path) -> ctypes.CDLL:
-    """The loaded library of ``source``, built first if it is missing."""
+    """The loaded library of ``source``, built first if it is missing.
+    Concurrent callers build it once."""
     lib = library_path(source)
-    if lib not in _LOADED:
-        build([source])
-        _LOADED[lib] = ctypes.CDLL(str(lib))
-    return _LOADED[lib]
+    with _LOAD_LOCK:
+        if lib not in _LOADED:
+            build([source])
+            _LOADED[lib] = ctypes.CDLL(str(lib))
+        return _LOADED[lib]

@@ -14,11 +14,15 @@ the attention term. ``impl="ref"`` is differentiable, as the reference's
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels.flash_attention import cuda, ref
 
 launches = 0
+# the count stays exact when threads launch at once
+_count_lock = threading.Lock()
 
 
 class FlashAttention(torch.autograd.Function):
@@ -29,7 +33,8 @@ class FlashAttention(torch.autograd.Function):
         global launches
         out = cuda.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale)
-        launches += 1
+        with _count_lock:
+            launches += 1
         return out
 
     @staticmethod

@@ -37,6 +37,7 @@ backward (``dx``, and T's backward), and ``gmm_ragged_dw`` (``dW``).
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Callable, NamedTuple
 
 import torch
@@ -48,15 +49,18 @@ equal_bwd_launches = 0    # gmm_equal, backward products (dX and dW)
 ragged_launches = 0       # gmm_ragged, forward products
 ragged_bwd_launches = 0   # gmm_ragged inside a backward (dx)
 ragged_dw_launches = 0    # gmm_ragged_dw (dW)
+# the counts stay exact when worker threads launch at once
+_count_lock = threading.Lock()
 
 
 def _kernel_equal(a, b, backward: bool = False):
     global equal_launches, equal_bwd_launches
     out = cuda.gmm_equal(a, b)
-    if backward:
-        equal_bwd_launches += 1
-    else:
-        equal_launches += 1
+    with _count_lock:
+        if backward:
+            equal_bwd_launches += 1
+        else:
+            equal_launches += 1
     return out
 
 
@@ -68,17 +72,19 @@ def _kernel_ragged(lhs, rhs, offsets, backward: bool = False):
     global ragged_launches, ragged_bwd_launches
     # rhs may be a transposed view: the kernel reads it in place
     out = cuda.gmm_ragged(lhs.contiguous(), rhs, offsets)
-    if backward:
-        ragged_bwd_launches += 1
-    else:
-        ragged_launches += 1
+    with _count_lock:
+        if backward:
+            ragged_bwd_launches += 1
+        else:
+            ragged_launches += 1
     return out
 
 
 def _kernel_ragged_t(a, b, offsets):
     global ragged_dw_launches
     out = cuda.gmm_ragged_dw(a.contiguous(), b.contiguous(), offsets)
-    ragged_dw_launches += 1
+    with _count_lock:
+        ragged_dw_launches += 1
     return out
 
 

@@ -32,12 +32,16 @@ it once for the whole horizon's member draws.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels.imag import cuda, ref
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 launches = 0    # imag_fused, one per step through the kernel
+# the count stays exact when worker threads launch at once
+_count_lock = threading.Lock()
 
 
 def uses_kernel(t: torch.Tensor, impl=None) -> bool:
@@ -72,7 +76,8 @@ def kernel_sorted(offsets, gid, members, norm, pol, s, eps):
     """The kernel on member-sorted rows; counts its launch."""
     global launches
     out = cuda.fused_step_sorted(members, norm, pol, s, eps, offsets)
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out
 
 

@@ -21,11 +21,15 @@ the kernel. Single-token decode has no kernel in the reference either:
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels.ssd import cuda, ref
 
 launches = 0    # ssd_chunked, one per scan through the kernel
+# the count stays exact when threads launch at once
+_count_lock = threading.Lock()
 
 ssd_decode_step = ref.ssd_decode_step
 ssd_sequential = ref.ssd_sequential
@@ -41,7 +45,8 @@ class SSDChunked(torch.autograd.Function):
         out = cuda.ssd_chunked(x, dt, A, B_, C, chunk=chunk,
                                initial_state=initial_state,
                                return_final_state=return_final_state)
-        launches += 1
+        with _count_lock:
+            launches += 1
         return out
 
     @staticmethod

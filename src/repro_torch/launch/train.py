@@ -1,15 +1,16 @@
 """Launcher: the port of ``repro/launch/train.py``, ``--task mbrl``.
 
 Asynchronous model-based RL on a PyTorch env with ME-TRPO / ME-PPO /
-MB-MPO under the event engine, async or one of the synchronous engines::
+MB-MPO, async (under the event engine, or on host threads with
+``--mode threads``) or one of the synchronous engines::
 
     python -m repro_torch.launch.train --task mbrl --env pendulum \\
         --algo me-trpo --engine async --trajs 60
 
 It runs on the card; ``--device cpu`` runs it on the CPU. The flags are
 the reference's, plus ``--device``. What is not ported exits with a
-message that names ROADMAP.md: ``--mode threads|procs``, ``--transport
-tcp``, ``--mesh``, ``--connect`` and ``--task lm``.
+message that names ROADMAP.md: ``--mode procs``, ``--transport tcp``,
+``--mesh``, ``--connect`` and ``--task lm``.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ import time
 
 def _not_ported(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to repro_torch yet: only the "
-                      "event engine of --task mbrl is (ROADMAP.md §1, open "
-                      "items)")
+                      "event and threads engines of --task mbrl are "
+                      "(ROADMAP.md §1, open items)")
 
 
 def run_mbrl(args):
@@ -33,7 +34,7 @@ def run_mbrl(args):
     from repro_torch.mbrl.dynamics import EnsembleConfig
     from repro_torch.mbrl.policy import PolicyConfig
 
-    if args.mode != "event":
+    if args.mode == "procs":
         raise _not_ported(f"--mode {args.mode}")
     if args.transport != "shm":
         raise _not_ported(f"--transport {args.transport}")
@@ -66,7 +67,8 @@ def run_mbrl(args):
                          "(env farms belong to the async engine)")
     dev = args.device
     engines = {
-        "async": lambda: AsyncTrainer(env, ens, algo, rc, device=dev),
+        "async": lambda: AsyncTrainer(env, ens, algo, rc, mode=args.mode,
+                                      device=dev),
         "sequential": lambda: SequentialTrainer(env, ens, algo, rc,
                                                 device=dev),
         "partial-model": lambda: PartialAsyncModelPolicy(env, ens, algo, rc,
@@ -114,8 +116,8 @@ def parser() -> argparse.ArgumentParser:
                              "partial-data"])
     ap.add_argument("--mode", default="event",
                     choices=["event", "threads", "procs"],
-                    help="async engine execution: simulated (event); host "
-                         "threads and OS processes are not ported")
+                    help="async engine execution: simulated (event) or "
+                         "host threads; OS processes are not ported")
     ap.add_argument("--trajs", type=int, default=40)
     ap.add_argument("--n-models", type=int, default=5)
     ap.add_argument("--model-hidden", type=int, default=128)

@@ -15,9 +15,8 @@ the ``imag_fused`` kernel on the card, policy head and assigned member in
 one launch). Draws are injected: member indices by ``sample_members`` and
 policy noise by ``hoisted_noise`` from an explicit generator, or passed in;
 the ring trainer's minibatch index grid by the caller
-(``ModelLearningWorker`` draws it, or replays one).
-
-Not ported: the legacy dynamic-shape ``make_model_trainer``.
+(``ModelLearningWorker`` draws it, or replays one), and the legacy trainer's
+epoch permutation likewise.
 """
 from __future__ import annotations
 
@@ -190,6 +189,44 @@ def _sgd_epoch(opt, params, opt_state, obs, act, next_obs, batches,
             params = apply_updates(params, upd)
         total = total + loss
     return params, opt_state, total / max(steps, 1)
+
+
+def make_model_trainer(cfg: EnsembleConfig):
+    """Legacy dynamic-shape trainer (its shapes follow the data; prefer
+    :func:`make_ring_trainer` on the hot path). Returns ``(opt,
+    train_epoch, val_loss)``:
+
+    * ``train_epoch(params, opt_state, obs, act, next_obs, perm=None, *,
+      generator=None)`` — one epoch of Adam over ``nb = max(n // bs, 1)``
+      minibatches of ``bs = min(cfg.train_batch, n)`` rows, taken from the
+      first ``nb * bs`` entries of the permutation ``perm`` of
+      ``range(n)``: the reference's ``jax.random.permutation(key, n)``, to
+      inject, or drawn from ``generator``. Returns ``(params, opt_state,
+      mean loss)``.
+    * ``val_loss(params, obs, act, next_obs)`` — MSE over every row.
+    """
+    opt = adam(cfg.lr)
+
+    def train_epoch(params, opt_state, obs, act, next_obs, perm=None, *,
+                    generator: Optional[torch.Generator] = None):
+        n = obs.shape[0]
+        bs = min(cfg.train_batch, n)
+        nb = max(n // bs, 1)
+        if perm is None:
+            if generator is None:
+                raise ValueError("train_epoch needs the permutation perm, "
+                                 "or a torch.Generator to draw it")
+            perm = torch.randperm(n, generator=generator,
+                                  device=generator.device)
+        batches = perm.to(obs.device)[:nb * bs].reshape(nb, bs)
+        return _sgd_epoch(opt, params, opt_state, obs, act, next_obs,
+                          batches)
+
+    @torch.no_grad()
+    def val_loss(params, obs, act, next_obs):
+        return mse_loss(params, obs, act, next_obs)
+
+    return opt, train_epoch, val_loss
 
 
 def masked_norm_stats(obs, act, next_obs, size: int):

@@ -32,7 +32,13 @@ SLICE4 = ["kernels/ssd/ref.py", "kernels/ssd/cuda.py", "kernels/ssd/ops.py",
 # the engines slice: the clocks, the trainers and the launcher (it extends
 # core/workers.py and core/__init__.py)
 SLICE5 = ["core/clock.py", "core/runtime.py", "launch/train.py"]
-EXAMPLES = ["torch_quickstart.py", "torch_pr2_arm.py"]
+# the threads slice: snapshots and the model-free baseline (it extends
+# core/servers.py, core/runtime.py, mbrl/dynamics.py, kernels/build.py and
+# the kernels' ops.py)
+SLICE6 = ["checkpoint/__init__.py", "checkpoint/io.py",
+          "mbrl/model_free.py"]
+EXAMPLES = ["torch_quickstart.py", "torch_pr2_arm.py",
+            "torch_async_vs_sync.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -51,7 +57,8 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("module", SLICE2 + SLICE3 + SLICE4 + SLICE5)
+@pytest.mark.parametrize("module", SLICE2 + SLICE3 + SLICE4 + SLICE5
+                         + SLICE6)
 def test_slice_module_is_scanned(module):
     assert PORT / module in FILES
 

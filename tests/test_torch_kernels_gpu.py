@@ -903,3 +903,91 @@ def test_event_run_on_the_card_goes_through_the_kernels(card):
     assert gmm_ops.equal_launches - g0 >= 3 * tr.model_worker.epochs
     assert imag_ops.launches - i0 == 15 * tr.policy_worker.steps
     assert all(np.isfinite(r["eval_return"]) for r in trace)
+
+
+@pytest.mark.gpu
+@pytest.mark.timeout(300)
+def test_threads_run_on_the_card_goes_through_the_kernels(card):
+    """A short paced threads-mode run on the card (pendulum, a small
+    ensemble and policy, 0.5 s of wall time a trajectory so both learners
+    work): exact trajectories, wall time at least the collection time,
+    one input shape on both learners, ``imag_fused`` once a horizon step
+    of every ME-TRPO step, ``gmm_equal`` on every epoch, and the learners'
+    last params on the card."""
+    import time
+
+    from repro_torch.core import AsyncTrainer, RunConfig
+    from repro_torch.envs import make_env
+    from repro_torch.mbrl import algos as A
+    from repro_torch.mbrl import dynamics as DYN
+    from repro_torch.mbrl import policy as PI
+    env = make_env("pendulum")
+    ens = DYN.EnsembleConfig(env.obs_dim, env.act_dim, hidden=32,
+                             n_models=2)
+    pol = PI.PolicyConfig(env.obs_dim, env.act_dim, hidden=16)
+    acfg = A.AlgoConfig(imagine_batch=16, imagine_horizon=15, n_models=2)
+    algo = A.make_algo(acfg, pol, env.reward, env.reset_batch)
+    tr = AsyncTrainer(env, ens, algo,
+                      RunConfig(total_trajs=8, seed=0, eval_rollouts=2,
+                                pace_collection=True, collect_speed=20.0),
+                      mode="threads", n_collectors=2)
+    g0, i0 = gmm_ops.equal_launches, imag_ops.launches
+    t0 = time.monotonic()
+    trace = tr.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    assert trace[-1]["trajs"] == 8 == tr.data_server.total_pushed
+    assert sum(c.collected for c in tr.collectors) == 8
+    assert wall >= 4 * env.horizon * env.dt / 20.0
+    assert tr.model_worker.compile_count() == 1
+    assert tr.policy_worker.compile_count() == 1
+    assert tr.model_worker.epochs > 0 and tr.policy_worker.steps > 0
+    assert gmm_ops.equal_launches - g0 >= 3 * tr.model_worker.epochs
+    assert imag_ops.launches - i0 == 15 * tr.policy_worker.steps
+    assert tr.policy_worker.state["policy"]["w"][0].is_cuda
+    assert all(np.isfinite(r["eval_return"]) for r in trace)
+
+
+@pytest.mark.gpu
+def test_servers_hand_values_across_streams(card):
+    """A push queued behind a ~0.1 s kernel on one stream, pulled and
+    drained on another: the puller's reads see the pushed values, and the
+    unchanged pull makes no host sync."""
+    from repro_torch.core.servers import DataServer, ParameterServer
+    n = 1 << 22
+    src = torch.randn(n, generator=torch.Generator(card).manual_seed(0),
+                      device=card)
+    want = src * 3 - 1
+    push_s, pull_s = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    params, data = ParameterServer(), DataServer()
+    with torch.cuda.stream(push_s):
+        torch.full((4 * n,), float("nan"), device=card)
+        torch.cuda._sleep(200_000_000)
+        params.push({"w": src * 3 - 1})
+        data.push_batch({"obs": (src * 3 - 1).reshape(2, -1)}, 2)
+    with torch.cuda.stream(pull_s):
+        got, ver = params.pull_if_newer(0)
+        out = got["w"] + 0.0
+        drained = torch.cat([t["obs"] for t in data.drain()]) + 0.0
+    torch.cuda.synchronize()
+    assert ver == 1 and torch.equal(out, want) and torch.equal(drained, want)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert params.pull_if_newer(1) == (None, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.gpu
+def test_checkpoint_restores_onto_the_card_bit_equal(card, tmp_path):
+    from repro_torch.checkpoint import io as ckpt_io
+    g = torch.Generator(card).manual_seed(1)
+    tree = {"w": [torch.randn(4, 3, generator=g, device=card)],
+            "b": [torch.randn(3, generator=g, device=card)],
+            "h": torch.randn(5, generator=g, device=card).to(torch.bfloat16)}
+    ckpt_io.save_pytree(tmp_path, tree, step=1)
+    out, step = ckpt_io.restore(tmp_path, tree)
+    assert step == 1
+    for a, b in zip(ckpt_io.flatten(tree), ckpt_io.flatten(out)):
+        assert b.is_cuda and a.dtype == b.dtype and torch.equal(a, b)

@@ -278,7 +278,8 @@ def test_real_clock_reads_the_monotonic_clock():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(mode="threads"), NotImplementedError),
+    # the threads engine is ported; over the tcp transport it is not
+    (dict(mode="threads", rc=dict(transport="tcp")), NotImplementedError),
     (dict(mode="procs"), NotImplementedError),
     (dict(mesh=object()), NotImplementedError),
     (dict(roles=object()), NotImplementedError),
@@ -371,7 +372,9 @@ def test_launcher_runs_each_engine_on_the_cpu(engine, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mode", "threads"], ["--mode", "procs"], ["--transport", "tcp"],
+    # the threads engine is ported; over the tcp transport it is not
+    ["--mode", "threads", "--transport", "tcp"], ["--mode", "procs"],
+    ["--transport", "tcp"],
     ["--mesh", "auto"], ["--connect", "127.0.0.1:5555"], ["--task", "lm"],
 ], ids=["threads", "procs", "tcp", "mesh", "connect", "lm"])
 def test_launcher_refuses_what_is_not_ported(flags):
