@@ -115,7 +115,31 @@ Phases, each printing one JSON line:
    values; the unchanged ``pull_if_newer`` runs under
    ``torch.cuda.set_sync_debug_mode("error")``. ``model_free``: the
    model-free PPO baseline, two iterations on the card: finite returns,
-   the trace's time as accounted.
+   the trace's time as accounted. ``threads_paced`` also gives the
+   device's busy share by ``nvidia-smi``'s ``utilization.gpu``, sampled
+   every 200 ms over the run (``UtilSampler``).
+   The procs engine, on the same configuration: ``procs_paced``,
+   ``AsyncTrainer(mode="procs")`` with ``threads_paced``'s ``RunConfig``,
+   held until the policy child is past one step: each collector, the model and the policy worker a spawned process with
+   a CUDA context of its own, the kernels built by the parent before it
+   spawns them. Asserts exactly 12 trajectories, no restart, the parent
+   launching no kernel, the model child's ``gmm_equal`` and the policy
+   child's ``imag_fused`` launches (50 a step, and 50 in the one
+   ``improve`` the policy child runs as a warm-up before its first step,
+   reported apart) on the card as each child reports them in its
+   heartbeat, and the collection window (from the
+   first policy a collector can pull to the fleet's exit) at least the
+   collection time; reports the wall time, the window, both over the
+   collection time, policy steps a trajectory beside ``threads_paced``'s
+   and ``event_run``'s, model epochs, and the device's busy share by
+   ``UtilSampler`` beside ``threads_paced``'s. ``procs_restart``: the
+   same run, the model child SIGKILLed after the first snapshot that holds
+   a trained model while at least ``min_warmup_trajs`` trajectories are
+   still to come; it must come back from that snapshot or a later one and
+   train on them past its republished snapshot, with exactly 12
+   trajectories.
+   ``procs_fleet``: 3 collectors of 5 robots, unpaced, exactly 12
+   trajectories with a partial grant, both kernels launched.
 10. ``ssm_model_check``: Mamba2-2.7B at full width, cut to 2 layers, f32:
    prefill(S) then decode(token S) against prefill(S + 1), and the kernel
    route against the plain scan.
@@ -129,15 +153,18 @@ Phases, each printing one JSON line:
    tokens, forward only: 64 launches, tokens/s, the scan's share of
    device time.
 13. ``kernels``: one entry per kernel, as the port's records expect;
-   ``gmm_equal`` and ``imag_fused`` also give their ``event_run`` and
-   ``threads_paced`` launches.
+   ``gmm_equal`` and ``imag_fused`` also give their ``event_run``,
+   ``threads_paced`` and ``procs_paced`` launches.
 
 Each kernel's launches are counted from 0 just before the phase that
 drives its path (``serve``, ``model_learn``, ``assigned_predict``,
 ``assigned_grad``, ``policy_improve``, each engine run of ``event_run``,
 ``sequential_run``, ``quickstart``, ``threads_paced``, ``threads_fleet``,
-``threads_profile``, ``ssm_serve``, ``ssm_forward``) and
-read just after it; comparison launches never count. The line before the
+``threads_profile``, ``procs_paced``, ``procs_restart``, ``procs_fleet``,
+``ssm_serve``, ``ssm_forward``) and
+read just after it (the procs phases' children count from 0 in their own
+processes and report in their heartbeats); comparison launches never
+count. The line before the
 last is the card's name and power limit from ``nvidia-smi``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It imports nothing of JAX and nothing
@@ -237,6 +264,24 @@ THREADS_PROFILE_TRAJS = 12
 HANDOFF_SLEEP_CYCLES = 200_000_000
 # the model-free baseline: two iterations of 4 trajectories
 MODEL_FREE_TRAJS = 8
+# the procs engine's paced run and restart: threads_paced's configuration,
+# the run held until the policy child is past one step (its start-up and
+# warm-up can outlast the 12 s of collection, and then its steps would
+# launch no kernel); its fleet: threads_fleet's, with both learners past a
+# step so that both kernels launch in their children
+PROCS_PACED = dict(total_trajs=ENGINE_TRAJS, pace_collection=True,
+                   collect_speed=THREADS_SPEED, min_final_policy_version=2)
+# the restart: snapshots every second, so that the first trained one
+# comes early in the collection
+PROCS_RESTART = dict(PROCS_PACED, snapshot_every_s=1.0)
+# a restarted model child that has not trained this long after the kill
+# fails the phase instead of holding the run open
+RESTART_TRAIN_S = 120.0
+PROCS_FLEET = dict(total_trajs=ENGINE_TRAJS, min_final_model_version=1,
+                   min_final_policy_version=2)
+# nvidia-smi's utilization.gpu (the share of each sample period in which a
+# kernel ran), sampled this often over an engine run
+SMI_SAMPLE_MS = 200
 
 
 def emit(obj) -> None:
@@ -1831,6 +1876,261 @@ def threads_fleet(gmm_ops, imag_ops, **trainer_kw) -> dict:
     return rec
 
 
+class UtilSampler:
+    """``nvidia-smi --query-gpu=utilization.gpu -lms SMI_SAMPLE_MS`` in the
+    background while a run lasts: the mean of its samples is the device's
+    busy share over the run by the card's own utilization counter (every
+    process's kernels, so it reads the procs engine's children too). The
+    process is stopped and waited for on exit."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", f"-lms={SMI_SAMPLE_MS}"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        self.samples = [int(x) for x in out.split() if x.isdigit()]
+
+    def record(self) -> dict:
+        if not self.samples:
+            raise RuntimeError("nvidia-smi gave no utilization sample")
+        return {"device_busy_share_smi": float(np.mean(self.samples)) / 100,
+                "smi_samples": len(self.samples),
+                "smi_sample_ms": SMI_SAMPLE_MS,
+                "smi_method": "mean of nvidia-smi utilization.gpu samples"}
+
+
+def procs_run(name, gmm_ops, imag_ops, rc_kw: dict, supervisor=None,
+              **trainer_kw) -> tuple:
+    """``AsyncTrainer(mode="procs")`` on ``engine_parts`` through its entry
+    point, ``RunConfig(seed=0, **rc_kw)``: each collector, the model and
+    the policy worker a spawned process with a CUDA context of its own. The
+    parent's launch counts go to 0 just before ``run`` and must still be 0
+    after it (the parent launches nothing); each child's counts start at 0
+    in its own process and come back in its heartbeat. Asserts exactly
+    ``total_trajs`` trajectories, relative and monotone trace times,
+    finite eval returns and adopted params, the model child on the card
+    with ``gmm_equal`` launches and one ``train_epoch`` shape, the policy
+    child with 50 ``imag_fused`` launches a step and 50 in each warm-up
+    (its heartbeat reports the warm-up's launches apart), the collectors
+    with no launch. The kernels line takes every launch of the run, the
+    warm-ups' included. Returns the trainer and the record, with the
+    device's busy share over the run by ``UtilSampler``."""
+    from repro_torch.core import AsyncTrainer, RunConfig
+    from repro_torch.mbrl import policy as PI
+    from repro_torch.utils.tree import tree_leaves
+    env, ens, acfg, algo = engine_parts()
+    pol = PI.PolicyConfig(env.obs_dim, env.act_dim, hidden=POLICY_HIDDEN)
+    ckpt = ROOT / "build" / f"{name}_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    rc = RunConfig(seed=0, ckpt_dir=str(ckpt), **rc_kw)
+    trainer = AsyncTrainer(env, ens, algo, rc, mode="procs", algo_cfg=acfg,
+                           pol_cfg=pol, supervisor=supervisor, **trainer_kw)
+    gmm_ops.equal_launches = gmm_ops.equal_bwd_launches = 0
+    imag_ops.launches = 0
+    torch.cuda.synchronize()
+    try:
+        with UtilSampler() as smi:
+            t0 = time.perf_counter()
+            trace = trainer.run()
+            wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    parent = [gmm_ops.equal_launches, gmm_ops.equal_bwd_launches,
+              imag_ops.launches]
+    info, rc = trainer.proc_info, trainer.run_cfg
+    kids = info["children"]
+    model, policy = kids["model"], kids["policy"]
+    # a child's launches in its steps: all of them less its warm-up's
+    steps = {r: {k: n - k_["warmup_launches"][k]
+                 for k, n in k_["launches"].items()}
+             for r, k_ in kids.items()}
+    warm = policy["warmup_launches"]
+    collectors = [kids[f"collector:{i}"] for i in range(rc.n_collectors)]
+    horizon = acfg.imagine_horizon
+    times = [r["time"] for r in trace]
+    checks = {
+        f"exactly {rc.total_trajs} trajectories":
+            info["trajs"] == rc.total_trajs
+            and trace[-1]["trajs"] == rc.total_trajs,
+        "collectors' trajectories sum to the total":
+            sum(c["work"] for c in collectors) == rc.total_trajs,
+        "trace times relative and monotone":
+            times == sorted(times) and 0.0 <= times[0]
+            and times[-1] <= wall,
+        "finite eval returns": all(np.isfinite(r["eval_return"])
+                                   for r in trace),
+        "finite adopted params": all(
+            bool(torch.isfinite(t).all()) for t in
+            tree_leaves(trainer.model_worker.params)
+            + tree_leaves(trainer.policy_worker.state["policy"])),
+        "the parent launched no kernel": parent == [0, 0, 0],
+        "every child on the card": all(k["route"] == "cuda"
+                                       for k in kids.values()),
+        "the model child launched gmm_equal":
+            steps["model"]["gmm_equal"] > 0
+            and steps["model"]["gmm_equal_bwd"] > 0,
+        "one train_epoch shape": model["compile_count"] == 1,
+        f"imag_fused launches in the policy steps = steps x {horizon}":
+            steps["policy"]["imag_fused"] == policy["work"] * horizon > 0,
+        f"imag_fused launches in each policy warm-up = {horizon}":
+            warm["imag_fused"]
+            == (info["restarts"]["policy"] + 1) * horizon,
+        "only the policy child warms up": not any(
+            n for r, k_ in kids.items() if r != "policy"
+            for n in k_["warmup_launches"].values()),
+        "collectors launch no kernel": not any(
+            n for c in collectors for n in c["launches"].values()),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{name} failed: {failed}; proc_info {info}, "
+                           f"parent launches {parent}, trace {trace}")
+    tl = info["timeline"]
+    collect_s = (-(-rc.total_trajs // (rc.n_collectors
+                                       * rc.envs_per_collector))
+                 * env.horizon * env.dt / rc.collect_speed)
+    window = tl["collection_done_s"] - tl["policy_ready_s"]
+    return trainer, {
+        "engine": "AsyncTrainer", "mode": "procs", "env": LEARN_ENV,
+        "run_config": {k: getattr(rc, k) for k in (
+            "total_trajs", "collect_speed", "pace_collection",
+            "n_collectors", "envs_per_collector", "min_final_model_version",
+            "min_final_policy_version", "snapshot_every_s")},
+        "trajs": info["trajs"],
+        "trajs_per_collector": [c["work"] for c in collectors],
+        "wall_s": wall, "collection_time_s": collect_s,
+        "wall_over_collection": wall / collect_s,
+        "timeline": tl, "collection_window_s": window,
+        "window_over_collection": window / collect_s,
+        "model_epochs": model["work"], "policy_steps": policy["work"],
+        "policy_steps_per_traj": policy["work"] / rc.total_trajs,
+        "s_per_step": {r: k["work_s"] / k["work"] if k["work"] else None
+                       for r, k in kids.items()},
+        "model_version": info["model_version"],
+        "policy_version": info["policy_version"],
+        "restarts": info["restarts"], "evals": len(trace),
+        "policy_warmup_s": policy["warmup_s"],
+        "children": kids, "gmm_equal_launches": sum(
+            k["launches"]["gmm_equal"] + k["launches"]["gmm_equal_bwd"]
+            for k in kids.values()),
+        "imag_fused_launches": sum(k["launches"]["imag_fused"]
+                                   for k in kids.values()),
+        "imag_fused_warmup_launches": warm["imag_fused"],
+        **smi.record(),
+        "eval_returns": [r["eval_return"] for r in trace],
+        "trace_time": times}
+
+
+def procs_paced(gmm_ops, imag_ops) -> dict:
+    """``threads_paced``'s run on the procs engine: 12 trajectories of 1.0
+    s of wall time each, the run held until the policy child is past one
+    step. Beyond ``procs_run``'s checks: no restart, the
+    collection window at least the collection time, a model version and a
+    policy step."""
+    _, rec = procs_run("procs_paced", gmm_ops, imag_ops, PROCS_PACED)
+    checks = {
+        "no restart": not any(rec["restarts"].values()),
+        "collection window >= collection time (pacing held)":
+            rec["collection_window_s"] >= rec["collection_time_s"] - 0.05,
+        "a model version": rec["model_version"] >= 1
+            and rec["model_epochs"] >= 1,
+        "a policy step": rec["policy_steps"] >= 1,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"procs_paced failed: {failed}; {rec}")
+    return rec
+
+
+def procs_restart(gmm_ops, imag_ops) -> dict:
+    """The paced run again, the model child SIGKILLed right after the
+    first snapshot that holds a trained model, if at least
+    ``min_warmup_trajs`` trajectories are still to be pushed: those reach
+    only the restarted child, which trains on nothing else (the dead one's
+    ring dies with it). Once the killed child is reaped, the supervisor
+    asks for a model version two past its last: the restarted child's
+    republished snapshot, then an epoch of its own. Asserts one model
+    restart and none other, the restarted child resumed from that snapshot
+    or a later one and trained (``procs_run``'s one ``train_epoch`` shape
+    is the new incarnation's), and exactly the target's trajectories."""
+    import os
+    import signal
+
+    from repro_torch.core import Supervisor
+
+    class KillModelAfterSnapshot(Supervisor):
+        killed = None
+
+        def on_snapshot(self, step):
+            tr = self.trainer
+            rc, srv = tr.run_cfg, tr._proc_servers["model"]
+            pushed = tr._proc_servers["data"].total_pushed
+            if self.killed is not None or srv.version < 1 or \
+                    pushed > rc.total_trajs - rc.min_warmup_trajs:
+                return
+            proc = tr._procs["model"]
+            os.kill(proc.pid, signal.SIGKILL)
+            proc.join(timeout=30)
+            self.killed = {"snapshot_step": step - 1,
+                           "model_version": srv.version,
+                           "trajs_pushed": pushed,
+                           "at_s": time.monotonic() - tr._proc_channels.t0}
+            rc.min_final_model_version = srv.version + 2
+
+        def on_tick(self):
+            if self.killed is not None and time.monotonic() \
+                    - self.trainer._proc_channels.t0 - self.killed["at_s"] \
+                    > RESTART_TRAIN_S:
+                raise RuntimeError(
+                    f"procs_restart: no model version "
+                    f"{self.trainer.run_cfg.min_final_model_version} "
+                    f"{RESTART_TRAIN_S} s after the kill {self.killed}")
+
+    sup = KillModelAfterSnapshot()
+    _, rec = procs_run("procs_restart", gmm_ops, imag_ops, PROCS_RESTART,
+                       supervisor=sup)
+    killed, model = sup.killed, rec["children"]["model"]
+    checks = {
+        "the model child was killed": killed is not None,
+        "one model restart, no other": rec["restarts"] == {
+            **{r: 0 for r in rec["restarts"]}, "model": 1},
+        "resumed from the snapshot before the kill or a later one":
+            killed is not None
+            and model["resumed_step"] >= killed["snapshot_step"],
+        "the restarted child trained past its republished snapshot":
+            killed is not None
+            and rec["model_version"] >= killed["model_version"] + 2,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"procs_restart failed: {failed}; {killed}, "
+                           f"{rec}")
+    return {**rec, "killed": killed}
+
+
+def procs_fleet(gmm_ops, imag_ops) -> dict:
+    """``threads_fleet``'s 3 collectors of 5 robots, unpaced, as processes:
+    12 trajectories exactly, a partial grant, both learners past a step."""
+    _, rec = procs_run("procs_fleet", gmm_ops, imag_ops, PROCS_FLEET,
+                       **THREADS_FLEET)
+    lanes = THREADS_FLEET["envs_per_collector"]
+    if not any(n % lanes for n in rec["trajs_per_collector"]):
+        raise RuntimeError(f"procs_fleet: no partial grant in "
+                           f"{rec['trajs_per_collector']}")
+    if any(rec["restarts"].values()):
+        raise RuntimeError(f"procs_fleet: restarts {rec['restarts']}")
+    return rec
+
+
 def stream_intervals(trace_path: Path) -> list:
     """(start µs, end µs, stream) of every kernel in a chrome trace."""
     events = json.loads(trace_path.read_text())["traceEvents"]
@@ -2432,7 +2732,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    paced_trainer, paced = threads_paced(gmm_ops, imag_ops)
+    with UtilSampler() as smi:
+        paced_trainer, paced = threads_paced(gmm_ops, imag_ops)
+    paced.update(smi.record())
     emit({"phase": "threads_paced", **paced,
           "policy_steps_per_traj_event_run":
               event["policy_steps"] / event["trajs"]})
@@ -2445,6 +2747,17 @@ def main() -> int:
     emit({"phase": "model_free", **model_free()})
     gc.collect()
     torch.cuda.empty_cache()
+
+    procs = procs_paced(gmm_ops, imag_ops)
+    emit({"phase": "procs_paced", **procs,
+          "threads_paced": {k: paced[k] for k in (
+              "wall_s", "wall_over_collection", "policy_steps",
+              "policy_steps_per_traj", "model_epochs",
+              "device_busy_share_smi")},
+          "policy_steps_per_traj_event_run":
+              event["policy_steps"] / event["trajs"]})
+    emit({"phase": "procs_restart", **procs_restart(gmm_ops, imag_ops)})
+    emit({"phase": "procs_fleet", **procs_fleet(gmm_ops, imag_ops)})
 
     emit({"phase": "ssm_model_check",
           **check_ssm_model(MAMBA, init_params, api, InputShape)})
@@ -2483,6 +2796,7 @@ def main() -> int:
         "launches_bwd": learned["gmm_equal_launches_bwd"],
         "launches_event_run": event["gmm_equal_launches"],
         "launches_threads_run": paced["gmm_equal_launches"],
+        "launches_procs_run": procs["gmm_equal_launches"],
         "max_abs_err": max(r["max_abs_err"]
                            for r in gmm_rows["equal"].values()),
         "ms": eq["ms"], "plain_ms": eq["plain_ms"],
@@ -2514,6 +2828,7 @@ def main() -> int:
         "launches": improved["imag_fused_launches"],
         "launches_event_run": event["imag_fused_launches"],
         "launches_threads_run": paced["imag_fused_launches"],
+        "launches_procs_run": procs["imag_fused_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in imag_rows.values()),
         "ms": im["ms"], "plain_ms": im["plain_ms"],
         "bound_ms": im["bound_ms"], "bound_by": im["bound_by"],

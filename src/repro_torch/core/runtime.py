@@ -1,10 +1,9 @@
-"""Training engines: the port of ``repro/core/runtime.py``, event and
-threads modes.
+"""Training engines: the port of ``repro/core/runtime.py``.
 
 * ``AsyncTrainer`` — the paper's contribution (Fig. 1a). It runs a FLEET of
   ``n_collectors`` data-collection workers, each an env farm of
   ``envs_per_collector`` robots, against the one global ``total_trajs``
-  criterion, in one of two modes sharing the same worker objects:
+  criterion, in one of three modes sharing the same worker objects:
     - ``mode="event"``: the deterministic discrete-event engine. Each
       worker has a virtual-time cursor; the engine always advances the
       worker with the SMALLEST cursor, so relative speeds (robot control
@@ -22,6 +21,20 @@ threads modes.
       only; the servers' events order the handoffs between streams
       (``core/servers.py``), and nothing on a worker's path synchronises
       the whole device.
+    - ``mode="procs"``: each collector, the model worker and the policy
+      worker is an OS process of its own, started from the ``spawn``
+      context; on the card each holds one CUDA context and loads the
+      kernels the parent built before it spawned them. They meet through
+      file-backed stores under the run's temporary directory
+      (``servers.ShmParameterServer``, ``ProcDataServer``,
+      ``ProcControl``), never a ``multiprocessing`` shared-memory or
+      synchronisation primitive and never a pickled tensor. The parent
+      supervises: snapshots of both stores through ``checkpoint/io.py``
+      every ``snapshot_every_s``, a dead child restarted from the latest
+      one (``max_restarts`` a role, then a loud ``RuntimeError``), a dead
+      collector's tickets refunded, and a ``Supervisor`` seam for fault
+      injection. Each child reports its kernel launches in its heartbeat
+      (``proc_info["children"]``).
 * ``SequentialTrainer`` — the classic synchronous baseline (Fig. 1b).
 * ``PartialAsyncModelPolicy`` — §5.2 ablation (interleave model/policy).
 * ``PartialAsyncDataPolicy`` — §5.3 ablation (interleave data/policy).
@@ -46,29 +59,43 @@ eval. Collector ``i`` draws from ``collector_generator(collector_seed,
 i)``; the model and policy workers seed their own generators with theirs;
 the eval generator lives on the trainer's device.
 
-Not ported (each raises, naming ROADMAP.md): ``mode="procs"``,
-``transport="tcp"``, role meshes (``mesh=``, ``roles=``) and
-``supervisor=``. ``RunConfig``'s fields for them are kept, with the
-reference's names and defaults, and ignored.
+Not ported (each raises, naming ROADMAP.md): ``transport="tcp"`` and role
+meshes (``mesh=``, ``roles=``). ``RunConfig``'s fields for them are kept,
+with the reference's names and defaults, and ignored.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import multiprocessing as mp
+import os
+import shutil
+import sys
+import tempfile
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+import traceback
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.servers import DataServer, ParameterServer
+from repro_torch.checkpoint import io as ckpt_io
+from repro_torch.core.servers import (DataServer, ParameterServer,
+                                      ProcControl, ProcDataServer,
+                                      ShmParameterServer)
 from repro_torch.core.workers import (DataCollectionWorker,
                                       ExplorationSchedule,
                                       ModelLearningWorker,
-                                      PolicyImprovementWorker, default_burst)
+                                      PolicyImprovementWorker, ProcChannels,
+                                      ProcSpec, default_burst,
+                                      heartbeat_slot, heartbeat_slots,
+                                      proc_worker_main)
+from repro_torch.kernels import LAUNCH_COUNTERS
 from repro_torch.mbrl import policy as PI
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_to
 
 
 @dataclasses.dataclass
@@ -98,15 +125,25 @@ class RunConfig:
     # collect_speed) so wall-clock reproduces the paper's real-robot rate
     # instead of racing simulated rollouts at compute speed
     pace_collection: bool = False
-    # the fields below configure the procs engine and the tcp transport,
-    # neither of which is ported: kept so that one config means the same
-    # run in both packages, and ignored here
+    # procs mode: how long a collector may block on a full trajectory
+    # spool before ProcDataServer raises its BackpressureError
     push_timeout_s: float = 30.0
+    # procs mode: parent supervision — snapshot cadence for the
+    # params+versions checkpoint (checkpoint/io.py), where to put it
+    # (None -> a fresh temporary directory), and how many crash-restarts
+    # each worker role gets before the run fails
     snapshot_every_s: float = 2.0
     ckpt_dir: Optional[str] = None
     max_restarts: int = 3
+    # procs mode: after the collectors reach total_trajs, keep the learner
+    # processes running until their stores reach these versions (0 = stop
+    # at once, the paper's pure criterion). The model worker pushes only
+    # after min_warmup_trajs, so never set min_final_model_version > 0
+    # with total_trajs < min_warmup_trajs.
     min_final_model_version: int = 0
     min_final_policy_version: int = 0
+    # the tcp transport is not ported: kept so that one config means the
+    # same run in both packages
     transport: str = "shm"
     bind: Optional[str] = None
 
@@ -121,8 +158,9 @@ def run_seeds(seed: int) -> tuple:
 
 
 def _not_ported(what: str) -> str:
-    return (f"{what} is not ported to repro_torch yet: only the event and "
-            "threads engines are (ROADMAP.md §1, open items)")
+    return (f"{what} is not ported to repro_torch yet: only the event, "
+            "threads and procs engines over the in-host stores are "
+            "(ROADMAP.md §1, open items)")
 
 
 def clear_eval_cache() -> None:
@@ -169,14 +207,144 @@ class _Recorder:
         return ret
 
 
+class Supervisor:
+    """Hook seam into ``AsyncTrainer(mode="procs")`` supervision, the
+    reference's. The parent's supervision loop calls these at fixed points;
+    the default does nothing, so plugging one in changes nothing about a
+    healthy run. Fault injection and invariant monitors build on it; the
+    trainer knows nothing of them.
+
+    Lifecycle (every call happens in the PARENT process):
+
+    * ``attach(trainer)``      once, before any child is spawned.
+    * ``on_spawn(role, proc, resume)``  after every child start (initial
+      spawns and crash-restarts alike).
+    * ``on_tick()``            every supervision-loop iteration (~50 Hz).
+    * ``on_child_exit(role, exitcode, n_restarts)``  when the parent finds
+      a dead child, BEFORE the budget check, so it fires even for the crash
+      that exhausts the budget.
+    * ``respawn_delay(role) -> float``  seconds to delay that role's
+      restart (0 = at once). While delayed, the dead child stays visible
+      in ``trainer._procs``.
+    * ``on_snapshot(step)``    after every parent snapshot attempt.
+    * ``on_complete()``        when the stopping criterion is reached
+      cleanly, before the learners are stopped.
+    * ``on_teardown(procs)``   FIRST in the teardown path, clean or not;
+      must leave every child joinable.
+    """
+
+    trainer: Any = None
+
+    def attach(self, trainer) -> None:
+        self.trainer = trainer
+
+    def detach(self) -> None:
+        """Drop the trainer reference; the trainer calls this LAST in its
+        teardown, breaking the trainer<->supervisor reference cycle."""
+        self.trainer = None
+
+    def on_spawn(self, role: str, proc, resume: bool) -> None:
+        pass
+
+    def on_tick(self) -> None:
+        pass
+
+    def on_child_exit(self, role: str, exitcode: int,
+                      n_restarts: int) -> None:
+        pass
+
+    def respawn_delay(self, role: str) -> float:
+        return 0.0
+
+    def on_snapshot(self, step: int) -> None:
+        pass
+
+    def on_complete(self) -> None:
+        pass
+
+    def on_teardown(self, procs: Dict[str, Any]) -> None:
+        pass
+
+
+class SupervisorChain(Supervisor):
+    """Fan one supervision seam out to several supervisors, in order;
+    ``respawn_delay`` is the MAX across members (the most patient wins)."""
+
+    def __init__(self, *members: Supervisor):
+        self.members = list(members)
+
+    def attach(self, trainer) -> None:
+        self.trainer = trainer
+        for m in self.members:
+            m.attach(trainer)
+
+    def detach(self) -> None:
+        self.trainer = None
+        for m in self.members:
+            m.detach()
+
+    def on_spawn(self, role, proc, resume) -> None:
+        for m in self.members:
+            m.on_spawn(role, proc, resume)
+
+    def on_tick(self) -> None:
+        for m in self.members:
+            m.on_tick()
+
+    def on_child_exit(self, role, exitcode, n_restarts) -> None:
+        for m in self.members:
+            m.on_child_exit(role, exitcode, n_restarts)
+
+    def respawn_delay(self, role) -> float:
+        return max([m.respawn_delay(role) for m in self.members],
+                   default=0.0)
+
+    def on_snapshot(self, step) -> None:
+        for m in self.members:
+            m.on_snapshot(step)
+
+    def on_complete(self) -> None:
+        for m in self.members:
+            m.on_complete()
+
+    def on_teardown(self, procs) -> None:
+        for m in self.members:
+            m.on_teardown(procs)
+
+
+_SUMMED = (("work", "work_s", "eval_s", "warmup_s")
+           + tuple(f"launches:{k}" for k in LAUNCH_COUNTERS)
+           + tuple(f"warmup:{k}" for k in LAUNCH_COUNTERS))
+
+
+def _child_report(slot: Dict[str, float], past: Dict[str, float]) -> dict:
+    """One role's heartbeat telemetry, its dead incarnations' work, step
+    seconds, warm-ups and launches added (``past``). ``launches`` holds
+    every launch of the role, its warm-ups' (``warmup_launches``)
+    included."""
+    def total(k):
+        return slot[k] + past.get(k, 0.0)
+    return {"work": int(total("work")), "work_s": total("work_s"),
+            "first_s": slot["first_s"], "eval_s": total("eval_s"),
+            "warmup_s": total("warmup_s"),
+            "launches": {k: int(total(f"launches:{k}"))
+                         for k in LAUNCH_COUNTERS},
+            "warmup_launches": {k: int(total(f"warmup:{k}"))
+                                for k in LAUNCH_COUNTERS},
+            "route": "cuda" if slot["cuda"] else "plain",
+            "compile_count": int(slot["compiles"]),
+            "resumed_step": int(slot["resumed"]) - 1}
+
+
 class AsyncTrainer:
     def __init__(self, env, ens_cfg, algo,
                  run_cfg: Optional[RunConfig] = None, *,
                  mode: str = "event", mesh=None, roles=None,
+                 algo_cfg=None, pol_cfg=None,
                  n_collectors: Optional[int] = None,
                  envs_per_collector: Optional[int] = None,
                  exploration: Optional[ExplorationSchedule] = None,
-                 supervisor=None, device=None):
+                 supervisor: Optional[Supervisor] = None, device=None):
         """``n_collectors``: size of the data-collection fleet (overrides
         ``run_cfg.n_collectors``); collector 0's stream is the lone
         collector's, so N=1 is the single-collector engine.
@@ -189,19 +357,32 @@ class AsyncTrainer:
         ``run_cfg.envs_per_collector``).
 
         ``device``: where every worker and the eval run; None means CUDA.
-        ``mode``: ``"event"`` or ``"threads"``. ``mesh``, ``roles`` and
-        ``supervisor`` take only their defaults: what they select is not
-        ported."""
+        ``mode``: ``"event"``, ``"threads"`` or ``"procs"``. ``mesh`` and
+        ``roles`` take only their defaults: role meshes are not ported.
+
+        ``mode="procs"`` also needs ``algo_cfg`` / ``pol_cfg`` (the plain
+        ``AlgoConfig`` / ``PolicyConfig``): spawned children rebuild the
+        algorithm from them. ``algo=None`` is then allowed and built here
+        the same way. ``supervisor``: a :class:`Supervisor` hooked into the
+        procs supervision loop; procs mode only."""
         if supervisor is not None and mode != "procs":
             raise ValueError(
                 f'supervisor= hooks into the mode="procs" supervision '
-                f"loop only (got mode={mode!r}); "
-                + _not_ported('mode="procs"'))
-        if mode not in ("event", "threads"):
+                f"loop only (got mode={mode!r})")
+        if mode not in ("event", "threads", "procs"):
             raise NotImplementedError(_not_ported(f"mode={mode!r}"))
         if mesh is not None or roles is not None:
+            if mode == "procs":
+                raise ValueError(
+                    'mode="procs" does not take a role mesh: each child '
+                    "owns its whole device; "
+                    + _not_ported("a per-process role mesh"))
             raise NotImplementedError(
                 _not_ported("a role mesh (mesh=, roles=)"))
+        self.supervisor = supervisor
+        self.algo_cfg = algo_cfg
+        self.pol_cfg = pol_cfg
+        self.ens_cfg = ens_cfg
         self.env = env
         # fresh per-instance config: a shared mutable default would leak
         # one caller's tweaks into every later trainer
@@ -221,14 +402,24 @@ class AsyncTrainer:
         if run_cfg.transport not in ("shm", "tcp"):
             raise ValueError(f"transport must be 'shm' or 'tcp', got "
                              f"{run_cfg.transport!r}")
-        if run_cfg.transport == "tcp" and mode == "threads":
-            raise NotImplementedError(_not_ported('transport="tcp"'))
+        if run_cfg.transport == "tcp" and mode != "event":
+            raise NotImplementedError(_not_ported(
+                f'transport="tcp" (mode={mode!r})'))
         if run_cfg.transport == "tcp":
             raise ValueError(
                 'transport="tcp" needs a real engine (mode="threads" or '
                 '"procs"): the event engine is a single-process virtual-'
                 "clock simulation with nothing to transport; "
                 + _not_ported('transport="tcp"'))
+        if mode == "procs":
+            if algo_cfg is None or pol_cfg is None:
+                raise ValueError(
+                    'mode="procs" needs algo_cfg= and pol_cfg= (children '
+                    "rebuild the algorithm from plain configs)")
+            if algo is None:
+                from repro_torch.mbrl.algos import make_algo
+                algo = make_algo(algo_cfg, pol_cfg, env.reward,
+                                 env.reset_batch)
         self.run_cfg = run_cfg
         self.mode = mode
         self.exploration = exploration if exploration is not None else (
@@ -245,7 +436,10 @@ class AsyncTrainer:
             device=self.device)
         # the collector FLEET: every member shares the policy/data
         # servers but owns its generator (collector 0 = the lone
-        # collector's stream) and its exploration rung
+        # collector's stream) and its exploration rung. In procs mode the
+        # fleet lives in child processes, so the parent keeps one
+        # collector (the ``collector`` alias) for the final count
+        n_local = 1 if mode == "procs" else run_cfg.n_collectors
         self.collectors = [
             DataCollectionWorker(
                 env, self.policy_server, self.data_server,
@@ -253,7 +447,7 @@ class AsyncTrainer:
                 speed=run_cfg.collect_speed, collector_id=i,
                 noise_scale=self.exploration.scale_for(i),
                 envs_per_step=run_cfg.envs_per_collector, device=self.device)
-            for i in range(run_cfg.n_collectors)]
+            for i in range(n_local)]
         self.collector = self.collectors[0]     # back-compat alias
         self.model_worker = ModelLearningWorker(
             ens_cfg, self.data_server, self.model_server, sm,
@@ -267,6 +461,8 @@ class AsyncTrainer:
     def run(self) -> List[Dict[str, float]]:
         if self.mode == "threads":
             return self._run_threads()
+        if self.mode == "procs":
+            return self._run_procs()
         return self._run_event()
 
     def _run_event(self):
@@ -434,6 +630,254 @@ class AsyncTrainer:
         here = torch.cuda.current_stream(self.device)
         for s in streams.values():
             here.wait_stream(s)
+
+
+    # ------------------------------------------------------------- procs
+    def _drain_trace(self, reader) -> None:
+        while reader.poll():
+            self.recorder.trace.append(reader.recv())
+
+    def _snapshot(self, ckpt_dir, model_srv, policy_srv, step) -> int:
+        """Checkpoint both stores' params and versions. Until a store's
+        first push its slot holds the parent's (deterministic) initial
+        params at version 0: restoring that is a restart from scratch.
+
+        A DEGRADED pull (None while the version is above 0: a writer died
+        mid-push) is not snapshotted, since initial params there would
+        ratchet the newest checkpoint back to scratch; the previous
+        snapshot stays and the next cycle retries."""
+        m, mv = model_srv.pull()
+        p, pv = policy_srv.pull()
+        if (m is None and model_srv.version > 0) or \
+                (p is None and policy_srv.version > 0):
+            return step
+        if m is None:
+            m, mv = self.model_worker.params, 0
+        if p is None:
+            p, pv = self.policy_worker.state["policy"], 0
+        tree = {"model": m, "model_version": np.int64(mv),
+                "policy": p, "policy_version": np.int64(pv)}
+        ckpt_io.save_pytree(ckpt_dir, tree, step=step, keep=3)
+        return step + 1
+
+    def _build_kernels(self) -> None:
+        """On the card, build the kernels the roles launch (``gmm_equal``
+        in the model child, ``imag_fused`` in the policy child) before any
+        child starts, so each child only loads the library."""
+        if self.device.type != "cuda":
+            return
+        from repro_torch.kernels import build
+        from repro_torch.kernels.gmm import cuda as gmm_cuda
+        from repro_torch.kernels.imag import cuda as imag_cuda
+        build.build([gmm_cuda.SOURCE, imag_cuda.SOURCE])
+
+    def _run_procs(self):
+        import repro_torch
+        rc = self.run_cfg
+        sup = self.supervisor if self.supervisor is not None else Supervisor()
+        ctx = mp.get_context("spawn")   # never fork a process with CUDA
+        self._build_kernels()
+        ckpt_dir = Path(rc.ckpt_dir) if rc.ckpt_dir else \
+            Path(tempfile.mkdtemp(prefix="repro_torch_procs_ckpt_"))
+        n_slots = heartbeat_slots(rc.n_collectors)
+        # every IPC resource belongs to this ExitStack: whatever path
+        # leaves the method closes the stores, and the run's directory
+        # (registered first, so removed last) takes every file with it
+        with contextlib.ExitStack() as stack:
+            run_dir = tempfile.mkdtemp(prefix="repro_torch_procs_")
+            stack.callback(shutil.rmtree, run_dir, True)
+            self._run_dir = run_dir
+            model_srv = stack.enter_context(
+                ShmParameterServer(self.model_worker.params, dir=run_dir))
+            policy_srv = stack.enter_context(ShmParameterServer(
+                self.policy_worker.state["policy"], dir=run_dir))
+            # ticket-armed: collector processes claim slots from the shared
+            # counters, so the criterion lands exactly even across
+            # collector crashes (the parent refunds in-flight tickets)
+            data_srv = stack.enter_context(ProcDataServer(
+                n_collectors=rc.n_collectors, target=rc.total_trajs,
+                push_timeout=rc.push_timeout_s, dir=run_dir))
+            control = ProcControl(n_slots, dir=run_dir)
+            stack.callback(control.close)
+            reader, writer = ctx.Pipe(duplex=False)
+            stack.callback(reader.close)
+            stack.callback(writer.close)
+            ch = ProcChannels(model_srv, policy_srv, data_srv, writer,
+                              control, t0=time.monotonic())
+            spec = ProcSpec(self.env, self.ens_cfg, self.algo_cfg,
+                            self.pol_cfg, rc, rc.seed,
+                            exploration=self.exploration,
+                            device=str(self.device))
+            self._proc_servers = {"model": model_srv, "policy": policy_srv,
+                                  "data": data_srv}
+            self._proc_channels = ch
+            # one supervised child per collector, each with its OWN
+            # restart budget
+            collector_roles = [f"collector:{i}"
+                               for i in range(rc.n_collectors)]
+            roles = ["model", "policy"] + collector_roles
+            restarts = {r: 0 for r in roles}
+            # dead incarnations' telemetry, added to the live slot's
+            past: Dict[str, Dict[str, float]] = {r: {} for r in roles}
+            # shared LIVE so a supervisor's on_tick sees the budget move
+            self.proc_info: Dict[str, Any] = {
+                "restarts": restarts, "ckpt_dir": str(ckpt_dir)}
+            src_root = str(Path(repro_torch.__file__).resolve().parents[1])
+
+            def slot_of(role):
+                return heartbeat_slot(role, rc.n_collectors)
+
+            def spawn(role, resume=False):
+                # children must import repro_torch whatever launched the
+                # parent (pytest, a notebook, an installed script)
+                old_pp = os.environ.get("PYTHONPATH")
+                if src_root not in (old_pp or "").split(os.pathsep):
+                    os.environ["PYTHONPATH"] = \
+                        src_root + (os.pathsep + old_pp if old_pp else "")
+                try:
+                    p = ctx.Process(
+                        target=proc_worker_main, name=f"repro_torch-{role}",
+                        args=(role, spec, ch,
+                              str(ckpt_dir) if resume else None),
+                        daemon=True)
+                    p.start()
+                finally:
+                    if old_pp is None:
+                        os.environ.pop("PYTHONPATH", None)
+                    else:
+                        os.environ["PYTHONPATH"] = old_pp
+                sup.on_spawn(role, p, resume)
+                return p
+
+            def bury(role):
+                # keep a dead child's work and launches; the slot starts
+                # from zero for the next incarnation
+                slot = control.read(slot_of(role))
+                for k in _SUMMED:
+                    past[role][k] = past[role].get(k, 0.0) + slot[k]
+                control.write(slot_of(role), [0.0] * len(control.FIELDS))
+
+            self._procs = {}
+            pending_respawn: Dict[str, float] = {}
+            last_snap = time.monotonic()
+            snap_step = 0
+            # seconds since the run's start, as the supervision loop sees
+            # them (to its ~20 ms tick): the first policy a collector can
+            # pull, and the whole fleet's clean exit
+            timeline: Dict[str, float] = {}
+            sup.attach(self)
+            try:
+                for r in ["policy", "model"] + collector_roles:
+                    self._procs[r] = spawn(r)
+                while True:
+                    self._drain_trace(reader)
+                    sup.on_tick()
+                    if "policy_ready_s" not in timeline and \
+                            policy_srv.version >= 1:
+                        timeline["policy_ready_s"] = time.monotonic() - ch.t0
+                    collected = all(self._procs[r].exitcode == 0
+                                    for r in collector_roles)
+                    if collected and "collection_done_s" not in timeline:
+                        timeline["collection_done_s"] = \
+                            time.monotonic() - ch.t0
+                    if collected and model_srv.version >= \
+                            rc.min_final_model_version and \
+                            policy_srv.version >= \
+                            rc.min_final_policy_version:
+                        break       # stopping criterion reached cleanly
+                    for role, p in list(self._procs.items()):
+                        ec = p.exitcode
+                        if ec is None or ec == 0:
+                            continue
+                        if role in pending_respawn:
+                            if time.monotonic() < pending_respawn[role]:
+                                continue
+                            del pending_respawn[role]
+                            self._procs[role] = spawn(role, resume=True)
+                            continue
+                        restarts[role] += 1
+                        sup.on_child_exit(role, ec, restarts[role])
+                        if restarts[role] > rc.max_restarts:
+                            raise RuntimeError(
+                                f"{role} worker crashed (exit {ec}) more "
+                                f"than max_restarts={rc.max_restarts} "
+                                "times")
+                        p.join()
+                        bury(role)
+                        if role.startswith("collector:"):
+                            # a crash between claim and push would strand
+                            # its tickets and stall the criterion
+                            data_srv.refund_inflight(
+                                int(role.split(":", 1)[1]))
+                        # restart from the LATEST snapshot, at once unless
+                        # a supervisor asks for a delay
+                        delay = float(sup.respawn_delay(role))
+                        if delay > 0:
+                            pending_respawn[role] = time.monotonic() + delay
+                        else:
+                            self._procs[role] = spawn(role, resume=True)
+                    if time.monotonic() - last_snap >= rc.snapshot_every_s:
+                        snap_step = self._snapshot(ckpt_dir, model_srv,
+                                                   policy_srv, snap_step)
+                        sup.on_snapshot(snap_step)
+                        last_snap = time.monotonic()
+                    time.sleep(0.02)
+                sup.on_complete()
+                ch.request_stop()
+                for role in ("model", "policy"):
+                    self._procs[role].join(timeout=120)
+                # the final eval row arrives AFTER the policy child saw
+                # the stop word
+                if reader.poll(10):
+                    self.recorder.trace.append(reader.recv())
+                self._drain_trace(reader)
+                # adopt the children's final published params, so the
+                # parent looks like a threads-mode trainer afterwards
+                m_final, mv = model_srv.pull()
+                p_final, pv = policy_srv.pull()
+                if p_final is not None:
+                    self.policy_worker.state = {
+                        **self.policy_worker.state,
+                        "policy": tree_to(p_final, self.device)}
+                    self.policy_server.push(
+                        self.policy_worker.state["policy"])
+                if m_final is not None:
+                    self.model_worker.params = tree_to(m_final, self.device)
+                    self.model_server.push(self.model_worker.params)
+                self.collector.collected = data_srv.total_pushed
+                snap_step = self._snapshot(ckpt_dir, model_srv, policy_srv,
+                                           snap_step)
+                self.proc_info.update({
+                    "model_version": int(mv), "policy_version": int(pv),
+                    "restarts": dict(restarts),
+                    "trajs": data_srv.total_pushed,
+                    "n_collectors": rc.n_collectors,
+                    "noise_scales": [self.exploration.scale_for(i)
+                                     for i in range(rc.n_collectors)],
+                    "timeline": {**timeline,
+                                 "stopped_s": time.monotonic() - ch.t0},
+                    "children": {r: _child_report(
+                        control.read(slot_of(r)), past[r]) for r in roles}})
+            finally:
+                # FIRST: let the supervisor make every child joinable
+                try:
+                    sup.on_teardown(self._procs)
+                except Exception:   # the children must still be stopped
+                    print("supervisor on_teardown failed:", file=sys.stderr)
+                    traceback.print_exc()
+                control.request_stop()
+                for p in self._procs.values():
+                    if p.is_alive():
+                        p.join(timeout=10)
+                    if p.is_alive():
+                        p.terminate()
+                        p.join(timeout=5)
+                    if p.is_alive():
+                        p.kill()    # even a wedged child must not
+                        p.join(timeout=5)   # outlive the run
+                sup.detach()
+                # the stores and the run directory close via the ExitStack
+        return self.recorder.trace
 
 
 class SequentialTrainer:

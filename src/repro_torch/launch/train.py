@@ -1,16 +1,19 @@
 """Launcher: the port of ``repro/launch/train.py``, ``--task mbrl``.
 
 Asynchronous model-based RL on a PyTorch env with ME-TRPO / ME-PPO /
-MB-MPO, async (under the event engine, or on host threads with
-``--mode threads``) or one of the synchronous engines::
+MB-MPO, async (under the event engine, on host threads with ``--mode
+threads``, or as supervised OS processes with ``--mode procs``) or one of
+the synchronous engines::
 
     python -m repro_torch.launch.train --task mbrl --env pendulum \\
         --algo me-trpo --engine async --trajs 60
 
 It runs on the card; ``--device cpu`` runs it on the CPU. The flags are
-the reference's, plus ``--device``. What is not ported exits with a
-message that names ROADMAP.md: ``--mode procs``, ``--transport tcp``,
-``--mesh``, ``--connect`` and ``--task lm``.
+the reference's, plus ``--device``; with ``--mode procs`` the ``--out``
+JSON gains the reference's ``procs`` block (restarts, trajectories,
+versions, the snapshot directory) and each child's kernel launches. What
+is not ported exits with a message that names ROADMAP.md: ``--transport
+tcp``, ``--mesh``, ``--connect`` and ``--task lm``.
 """
 from __future__ import annotations
 
@@ -21,8 +24,9 @@ import time
 
 def _not_ported(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to repro_torch yet: only the "
-                      "event and threads engines of --task mbrl are "
-                      "(ROADMAP.md §1, open items)")
+                      "event, threads and procs engines of --task mbrl "
+                      "over the in-host stores are (ROADMAP.md §1, open "
+                      "items)")
 
 
 def run_mbrl(args):
@@ -34,8 +38,6 @@ def run_mbrl(args):
     from repro_torch.mbrl.dynamics import EnsembleConfig
     from repro_torch.mbrl.policy import PolicyConfig
 
-    if args.mode == "procs":
-        raise _not_ported(f"--mode {args.mode}")
     if args.transport != "shm":
         raise _not_ported(f"--transport {args.transport}")
     if args.mesh != "none":
@@ -65,9 +67,15 @@ def run_mbrl(args):
     if args.envs_per_collector > 1 and args.engine != "async":
         raise SystemExit("--envs-per-collector > 1 needs --engine async "
                          "(env farms belong to the async engine)")
+    if args.mode == "procs" and args.engine != "async":
+        raise SystemExit("--mode procs is only meaningful with "
+                         "--engine async")
     dev = args.device
     engines = {
+        # procs children rebuild the algorithm from plain configs, so the
+        # async engine gets them beside the built algorithm
         "async": lambda: AsyncTrainer(env, ens, algo, rc, mode=args.mode,
+                                      algo_cfg=acfg, pol_cfg=pol,
                                       device=dev),
         "sequential": lambda: SequentialTrainer(env, ens, algo, rc,
                                                 device=dev),
@@ -83,8 +91,10 @@ def run_mbrl(args):
            "real_seconds": round(time.perf_counter() - t0, 1),
            "trace": trace}
     if getattr(tr, "collectors", None) is not None:
-        # fleet report: each member's exploration rung and its share of
-        # the global criterion
+        # fleet report: each member's exploration rung and, for the
+        # in-process engines, its share of the global criterion (the procs
+        # fleet lives in child processes; its counts are in the "procs"
+        # block below)
         n = tr.run_cfg.n_collectors
         out["fleet"] = {
             "n_collectors": n,
@@ -92,8 +102,12 @@ def run_mbrl(args):
             "sim_robots": n * tr.run_cfg.envs_per_collector,
             "noise_scales": [tr.exploration.scale_for(i)
                              for i in range(n)],
-            "trajs_per_collector": [c.collected for c in tr.collectors],
         }
+        if args.mode != "procs":
+            out["fleet"]["trajs_per_collector"] = \
+                [c.collected for c in tr.collectors]
+    if getattr(tr, "proc_info", None):
+        out["procs"] = tr.proc_info
     print(json.dumps(out["trace"][-1], indent=1))
     if args.out:
         with open(args.out, "w") as f:
@@ -116,8 +130,9 @@ def parser() -> argparse.ArgumentParser:
                              "partial-data"])
     ap.add_argument("--mode", default="event",
                     choices=["event", "threads", "procs"],
-                    help="async engine execution: simulated (event) or "
-                         "host threads; OS processes are not ported")
+                    help="async engine execution: simulated (event), "
+                         "host threads, or OS processes over file-backed "
+                         "stores (procs)")
     ap.add_argument("--trajs", type=int, default=40)
     ap.add_argument("--n-models", type=int, default=5)
     ap.add_argument("--model-hidden", type=int, default=128)
@@ -153,7 +168,9 @@ def parser() -> argparse.ArgumentParser:
                     help="join a live run as remote collectors (not "
                          "ported)")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="procs mode only (not ported); ignored")
+                    help="procs mode: where the supervisor snapshots "
+                         "params + versions (default: a fresh temporary "
+                         "directory)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: the CUDA card; "

@@ -37,6 +37,15 @@ SLICE5 = ["core/clock.py", "core/runtime.py", "launch/train.py"]
 # the kernels' ops.py)
 SLICE6 = ["checkpoint/__init__.py", "checkpoint/io.py",
           "mbrl/model_free.py"]
+# the procs slice adds no module: it extends core/servers.py,
+# core/workers.py, core/runtime.py and launch/train.py, each scanned above
+SLICE7 = [("core/servers.py", ["ShmParameterServer", "ProcDataServer",
+                               "ProcControl", "live_shm_segments",
+                               "live_data_servers",
+                               "reclaim_ipc_resources"]),
+          ("core/workers.py", ["ProcSpec", "ProcChannels", "heartbeat_slot",
+                               "heartbeat_slots", "proc_worker_main"]),
+          ("core/runtime.py", ["Supervisor", "SupervisorChain"])]
 EXAMPLES = ["torch_quickstart.py", "torch_pr2_arm.py",
             "torch_async_vs_sync.py"]
 
@@ -61,6 +70,16 @@ def test_no_jax_or_reference_import(path):
                          + SLICE6)
 def test_slice_module_is_scanned(module):
     assert PORT / module in FILES
+
+
+@pytest.mark.parametrize("module,names", SLICE7,
+                         ids=[m for m, _ in SLICE7])
+def test_slice7_names_live_in_scanned_modules(module, names):
+    assert PORT / module in FILES
+    tree = ast.parse((PORT / module).read_text())
+    defined = {n.name for n in tree.body
+               if isinstance(n, (ast.ClassDef, ast.FunctionDef))}
+    assert set(names) <= defined, sorted(set(names) - defined)
 
 
 @pytest.mark.parametrize("example", EXAMPLES)

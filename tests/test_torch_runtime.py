@@ -278,13 +278,16 @@ def test_real_clock_reads_the_monotonic_clock():
 
 
 @pytest.mark.parametrize("kw,err", [
-    # the threads engine is ported; over the tcp transport it is not
+    # the threads and procs engines are ported; over the tcp transport
+    # they are not, nor is a per-process role mesh under procs
     (dict(mode="threads", rc=dict(transport="tcp")), NotImplementedError),
-    (dict(mode="procs"), NotImplementedError),
+    (dict(mode="procs", rc=dict(transport="tcp")), NotImplementedError),
     (dict(mesh=object()), NotImplementedError),
     (dict(roles=object()), NotImplementedError),
-    (dict(supervisor=object()), ValueError),
-    (dict(mode="procs", supervisor=object()), NotImplementedError),
+    (dict(mode="procs", supervisor=TR.Supervisor(), mesh=object()),
+     ValueError),
+    (dict(mode="procs", supervisor=TR.Supervisor(),
+          rc=dict(transport="tcp")), NotImplementedError),
     (dict(rc=dict(transport="tcp")), ValueError),
 ], ids=["threads", "procs", "mesh", "roles", "supervisor",
         "procs_supervisor", "tcp"])
@@ -300,11 +303,16 @@ def test_unported_engines_and_options_raise_naming_the_roadmap(kw, err):
     (dict(n_collectors=0), "n_collectors must be >= 1"),
     (dict(envs_per_collector=0), "envs_per_collector must be >= 1"),
     (dict(transport="udp"), "transport must be 'shm' or 'tcp'"),
+    # a Supervisor hooks into the procs supervision loop only
+    (dict(supervisor=TR.Supervisor()), "supervision loop only"),
 ])
 def test_reference_value_errors_are_kept(rc, match):
     env, ens, algo = _torch_parts()
+    rc = dict(rc)
+    kw = {"supervisor": rc.pop("supervisor")} if "supervisor" in rc else {}
     with pytest.raises(ValueError, match=match):
-        TR.AsyncTrainer(env, ens, algo, TR.RunConfig(**rc), device="cpu")
+        TR.AsyncTrainer(env, ens, algo, TR.RunConfig(**rc), device="cpu",
+                        **kw)
 
 
 @pytest.mark.parametrize("cls", ["AsyncTrainer", "SequentialTrainer",
@@ -372,9 +380,10 @@ def test_launcher_runs_each_engine_on_the_cpu(engine, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    # the threads engine is ported; over the tcp transport it is not
-    ["--mode", "threads", "--transport", "tcp"], ["--mode", "procs"],
-    ["--transport", "tcp"],
+    # the threads and procs engines are ported; over the tcp transport
+    # they are not
+    ["--mode", "threads", "--transport", "tcp"],
+    ["--mode", "procs", "--transport", "tcp"], ["--transport", "tcp"],
     ["--mesh", "auto"], ["--connect", "127.0.0.1:5555"], ["--task", "lm"],
 ], ids=["threads", "procs", "tcp", "mesh", "connect", "lm"])
 def test_launcher_refuses_what_is_not_ported(flags):
