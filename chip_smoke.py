@@ -140,6 +140,27 @@ Phases, each printing one JSON line:
    trajectories.
    ``procs_fleet``: 3 collectors of 5 robots, unpaced, exactly 12
    trajectories with a partial grant, both kernels launched.
+   The tcp control plane and the chaos tier, on the same configuration:
+   ``threads_tcp``, ``threads_paced`` with every store behind a loopback
+   ``ControlPlane`` (``transport="tcp"``): exactly 12 trajectories,
+   unchanged pulls that moved zero array bytes by the client's counter,
+   50 ``imag_fused`` launches a policy step with at least one step,
+   ``gmm_equal`` launches; reports the wall / collection ratio, policy
+   steps and the host milliseconds of a changed and of an unchanged pull.
+   ``procs_tcp_join``: ``procs_paced`` over tcp, with one collector joining
+   the live run from this process through the plane's address
+   (``join_as_collectors``): exactly 12 trajectories, at least one of them
+   the joiner's under an id past the fleet's, no restart, the children's
+   launches from their heartbeats and none in the parent. ``chaos_run``:
+   ``procs_paced`` with two collectors over the file-backed stores under a
+   seeded ``FaultPlan`` (seed 0: 5 faults, at most 2 kills a role;
+   ``max_restarts=3``) injected by ``ChaosSupervisor`` with an
+   ``InvariantMonitor`` watching, inside a ``ResourceAuditor`` baseline and
+   audit: zero violations, zero leaks, at least 3 faults across all three
+   role families, exactly 12 trajectories, and each restarted learner's
+   last incarnation at work with its kernel's launches; reports each
+   fault's time, each respawn's seconds to its first heartbeat and first
+   work, and the wall time.
 10. ``ssm_model_check``: Mamba2-2.7B at full width, cut to 2 layers, f32:
    prefill(S) then decode(token S) against prefill(S + 1), and the kernel
    route against the plain scan.
@@ -154,13 +175,15 @@ Phases, each printing one JSON line:
    device time.
 13. ``kernels``: one entry per kernel, as the port's records expect;
    ``gmm_equal`` and ``imag_fused`` also give their ``event_run``,
-   ``threads_paced`` and ``procs_paced`` launches.
+   ``threads_paced``, ``procs_paced``, ``threads_tcp``, ``procs_tcp_join``
+   and ``chaos_run`` launches.
 
 Each kernel's launches are counted from 0 just before the phase that
 drives its path (``serve``, ``model_learn``, ``assigned_predict``,
 ``assigned_grad``, ``policy_improve``, each engine run of ``event_run``,
 ``sequential_run``, ``quickstart``, ``threads_paced``, ``threads_fleet``,
 ``threads_profile``, ``procs_paced``, ``procs_restart``, ``procs_fleet``,
+``threads_tcp``, ``procs_tcp_join``, ``chaos_run``,
 ``ssm_serve``, ``ssm_forward``) and
 read just after it (the procs phases' children count from 0 in their own
 processes and report in their heartbeats); comparison launches never
@@ -279,6 +302,16 @@ PROCS_RESTART = dict(PROCS_PACED, snapshot_every_s=1.0)
 RESTART_TRAIN_S = 120.0
 PROCS_FLEET = dict(total_trajs=ENGINE_TRAJS, min_final_model_version=1,
                    min_final_policy_version=2)
+# the route the procs children must report: on the card each launches its
+# kernels ("cuda"); children on the CPU run the plain versions ("plain")
+# and launch nothing
+CHILD_ROUTE = "cuda"
+# the chaos run: procs_paced's configuration with two collectors, under the
+# micro soak profile's fault plan (5 faults, at most 2 kills a role) and
+# restart budget, from this seed
+CHAOS_SEED = 0
+CHAOS_PLAN = dict(n_collectors=2, n_faults=5, max_kills_per_role=2)
+CHAOS_RUN = dict(n_collectors=2, max_restarts=3)
 # nvidia-smi's utilization.gpu (the share of each sample period in which a
 # kernel ran), sampled this often over an engine run
 SMI_SAMPLE_MS = 200
@@ -1909,7 +1942,7 @@ class UtilSampler:
 
 
 def procs_run(name, gmm_ops, imag_ops, rc_kw: dict, supervisor=None,
-              **trainer_kw) -> tuple:
+              joined=None, chaos=False, **trainer_kw) -> tuple:
     """``AsyncTrainer(mode="procs")`` on ``engine_parts`` through its entry
     point, ``RunConfig(seed=0, **rc_kw)``: each collector, the model and
     the policy worker a spawned process with a CUDA context of its own. The
@@ -1921,7 +1954,13 @@ def procs_run(name, gmm_ops, imag_ops, rc_kw: dict, supervisor=None,
     with ``gmm_equal`` launches and one ``train_epoch`` shape, the policy
     child with 50 ``imag_fused`` launches a step and 50 in each warm-up
     (its heartbeat reports the warm-up's launches apart), the collectors
-    with no launch. The kernels line takes every launch of the run, the
+    with no launch. Children on the CPU (``CHILD_ROUTE`` "plain") must
+    launch nothing. ``joined()``, when given, is the trajectories that
+    joined collectors contributed, counted with the fleet's. Under
+    ``chaos`` a collector killed between a push and its next heartbeat
+    leaves that trajectory out of its reported work, and a policy child
+    killed in its warm-up never reports it, so those two counts are
+    bounds there. The kernels line takes every launch of the run, the
     warm-ups' included. Returns the trainer and the record, with the
     device's busy share over the run by ``UtilSampler``."""
     from repro_torch.core import AsyncTrainer, RunConfig
@@ -1957,12 +1996,17 @@ def procs_run(name, gmm_ops, imag_ops, rc_kw: dict, supervisor=None,
     collectors = [kids[f"collector:{i}"] for i in range(rc.n_collectors)]
     horizon = acfg.imagine_horizon
     times = [r["time"] for r in trace]
+    joined_n = joined() if joined is not None else 0
+    fleet_n = sum(c["work"] for c in collectors) + joined_n
+    card = CHILD_ROUTE == "cuda"
+    warmups = info["restarts"]["policy"] + 1
     checks = {
         f"exactly {rc.total_trajs} trajectories":
             info["trajs"] == rc.total_trajs
             and trace[-1]["trajs"] == rc.total_trajs,
         "collectors' trajectories sum to the total":
-            sum(c["work"] for c in collectors) == rc.total_trajs,
+            (fleet_n <= rc.total_trajs) if chaos
+            else fleet_n == rc.total_trajs,
         "trace times relative and monotone":
             times == sorted(times) and 0.0 <= times[0]
             and times[-1] <= wall,
@@ -1973,17 +2017,22 @@ def procs_run(name, gmm_ops, imag_ops, rc_kw: dict, supervisor=None,
             tree_leaves(trainer.model_worker.params)
             + tree_leaves(trainer.policy_worker.state["policy"])),
         "the parent launched no kernel": parent == [0, 0, 0],
-        "every child on the card": all(k["route"] == "cuda"
-                                       for k in kids.values()),
-        "the model child launched gmm_equal":
+        f"every child on the {CHILD_ROUTE} route": all(
+            k["route"] == CHILD_ROUTE for k in kids.values()),
+        "the model child launched gmm_equal": (
             steps["model"]["gmm_equal"] > 0
-            and steps["model"]["gmm_equal_bwd"] > 0,
+            and steps["model"]["gmm_equal_bwd"] > 0) if card
+            else model["work"] > 0,
         "one train_epoch shape": model["compile_count"] == 1,
         f"imag_fused launches in the policy steps = steps x {horizon}":
-            steps["policy"]["imag_fused"] == policy["work"] * horizon > 0,
-        f"imag_fused launches in each policy warm-up = {horizon}":
-            warm["imag_fused"]
-            == (info["restarts"]["policy"] + 1) * horizon,
+            steps["policy"]["imag_fused"]
+            == (policy["work"] * horizon if card else 0)
+            and policy["work"] > 0,
+        f"imag_fused launches in each policy warm-up = {horizon}": (
+            warm["imag_fused"] % horizon == 0
+            and horizon <= warm["imag_fused"] <= warmups * horizon
+            if chaos else warm["imag_fused"] == warmups * horizon)
+            if card else warm["imag_fused"] == 0,
         "only the policy child warms up": not any(
             n for r, k_ in kids.items() if r != "policy"
             for n in k_["warmup_launches"].values()),
@@ -2007,6 +2056,7 @@ def procs_run(name, gmm_ops, imag_ops, rc_kw: dict, supervisor=None,
             "min_final_policy_version", "snapshot_every_s")},
         "trajs": info["trajs"],
         "trajs_per_collector": [c["work"] for c in collectors],
+        "joined_trajs": joined_n,
         "wall_s": wall, "collection_time_s": collect_s,
         "wall_over_collection": wall / collect_s,
         "timeline": tl, "collection_window_s": window,
@@ -2129,6 +2179,308 @@ def procs_fleet(gmm_ops, imag_ops) -> dict:
     if any(rec["restarts"].values()):
         raise RuntimeError(f"procs_fleet: restarts {rec['restarts']}")
     return rec
+
+
+class PullMeter:
+    """Wraps one ``TcpParameterServer``'s ``pull_if_newer``: each call's
+    outcome (changed or not), the array bytes it moved by the client's own
+    counter, and its host milliseconds. One thread pulls each store in the
+    threads engine (the collector the policy, the policy worker the
+    model), so a call's counter delta is its own."""
+
+    def __init__(self, srv):
+        self.rows = []
+        call = srv.pull_if_newer
+
+        def metered(version):
+            b0 = srv.array_bytes_received
+            t0 = time.perf_counter()
+            value, ver = call(version)
+            self.rows.append((value is not None,
+                              srv.array_bytes_received - b0,
+                              (time.perf_counter() - t0) * 1e3))
+            return value, ver
+        srv.pull_if_newer = metered
+        self.codec_bytes = lambda: sum(srv.codec.nbytes)
+
+    def record(self) -> dict:
+        changed = [r for r in self.rows if r[0]]
+        same = [r for r in self.rows if not r[0]]
+        return {"changed": len(changed), "unchanged": len(same),
+                "changed_bytes": [b for _, b, _ in changed][:3],
+                "unchanged_bytes": sum(b for _, b, _ in same),
+                "codec_bytes": self.codec_bytes() if changed else None,
+                "changed_ms_p50": float(np.median([m for *_, m in changed]))
+                if changed else None,
+                "unchanged_ms_p50": float(np.median([m for *_, m in same]))
+                if same else None}
+
+
+def threads_tcp(gmm_ops, imag_ops, **trainer_kw) -> dict:
+    """``threads_paced``'s run with every store behind a loopback
+    ``ControlPlane`` (``RunConfig(transport="tcp")``), through its entry
+    point: the workers pull and push over TCP. Asserts exactly
+    ``total_trajs`` trajectories (the plane's count, kept in ``net_info``
+    when the trainer closes its plane), unchanged pulls that moved zero
+    array bytes and changed ones that moved the codec's bytes (the
+    client's counter), 50 ``imag_fused`` launches a policy step with at
+    least one step, and each epoch's ``gmm_equal`` launches as its ring
+    implies. Reports the wall / collection ratio, the policy steps and the
+    host milliseconds of a changed and of an unchanged pull."""
+    from repro_torch.core import AsyncTrainer, RunConfig
+    env, ens, acfg, algo = engine_parts()
+    rc = RunConfig(seed=0, total_trajs=ENGINE_TRAJS, pace_collection=True,
+                   collect_speed=THREADS_SPEED, transport="tcp")
+    trainer = AsyncTrainer(env, ens, algo, rc, mode="threads", **trainer_kw)
+    timing = time_workers(trainer, gmm_ops, sync=False)
+    meters = {"policy": PullMeter(trainer.policy_server),
+              "model": PullMeter(trainer.model_server)}
+    gmm_ops.equal_launches = gmm_ops.equal_bwd_launches = 0
+    imag_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gmm = gmm_ops.equal_launches + gmm_ops.equal_bwd_launches
+    imag = imag_ops.launches
+    model, policy = trainer.model_worker, trainer.policy_worker
+    horizon = policy.algo.cfg.imagine_horizon
+    epochs = timing["epochs"]
+    pulls = {k: m.record() for k, m in meters.items()}
+    net = trainer.net_info
+    collect_s = rc.total_trajs * env.horizon * env.dt / rc.collect_speed
+    checks = {
+        f"exactly {rc.total_trajs} trajectories":
+            net["trajs"] == rc.total_trajs
+            and trace[-1]["trajs"] == rc.total_trajs
+            and trainer.collector.collected == rc.total_trajs,
+        "the plane is closed after the run": trainer._plane is None,
+        "unchanged pulls moved zero array bytes": all(
+            p["unchanged"] > 0 and p["unchanged_bytes"] == 0
+            for p in pulls.values()),
+        "changed pulls moved the codec's bytes": all(
+            p["changed"] > 0 and set(p["changed_bytes"])
+            == {p["codec_bytes"]} for p in pulls.values()),
+        "wall time >= collection time (pacing held)": wall >= collect_s,
+        "a policy step": policy.steps >= 1,
+        f"imag_fused launches = policy steps x {horizon}":
+            imag == policy.steps * horizon,
+        "every epoch's gmm_equal launches as its ring implies":
+            all(e["launches"] == e["want"] for e in epochs) and gmm > 0
+            and gmm == sum(sum(e["want"]) for e in epochs),
+        "at most one train_epoch / improve shape":
+            model.compile_count() <= 1 and policy.compile_count() <= 1,
+        "finite eval returns": all(np.isfinite(r["eval_return"])
+                                   for r in trace),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"threads_tcp failed: {failed}; net {net}, "
+                           f"pulls {pulls}, trace {trace}")
+    return {"engine": "AsyncTrainer", "mode": "threads", "transport": "tcp",
+            "env": LEARN_ENV, "trajs": net["trajs"], "net_info": net,
+            "wall_s": wall, "collection_time_s": collect_s,
+            "wall_over_collection": wall / collect_s,
+            "model_epochs": model.epochs, "policy_steps": policy.steps,
+            "policy_steps_per_traj": policy.steps / rc.total_trajs,
+            "pulls": pulls, "gmm_equal_launches": gmm,
+            "imag_fused_launches": imag,
+            "eval_returns": [r["eval_return"] for r in trace]}
+
+
+def join_on_attach():
+    """A ``Supervisor`` that, once the procs run's plane is up (``attach``),
+    joins it from a thread of this process as one more collector through
+    ``repro_torch.net.join_as_collectors``, on the trainer's device."""
+    from repro_torch.core import Supervisor
+
+    class JoinOnAttach(Supervisor):
+        def attach(self, trainer):
+            super().attach(trainer)
+            from repro_torch.net import join_as_collectors
+            self.ids, self.error = {}, None
+            addr, dev = trainer.net_info["addr"], trainer.device
+
+            def body():
+                try:
+                    join_as_collectors(addr, device=dev,
+                                       per_collector=self.ids)
+                except BaseException as e:  # noqa: BLE001 — re-raised
+                    self.error = e
+            self.thread = threading.Thread(target=body, daemon=True,
+                                           name="joiner")
+            self.thread.start()
+
+        def joined(self) -> int:
+            self.thread.join(timeout=60)
+            if self.thread.is_alive():
+                raise RuntimeError("the joiner did not end with the run")
+            if self.error is not None:
+                raise RuntimeError("the joiner failed") from self.error
+            return sum(self.ids.values())
+    return JoinOnAttach()
+
+
+def procs_tcp_join(gmm_ops, imag_ops, **trainer_kw) -> dict:
+    """``procs_paced`` over the tcp transport, its children dialling a
+    loopback ``ControlPlane``, and one collector joining the live run
+    through the plane's address (``join_as_collectors``). Beyond
+    ``procs_run``'s checks (exactly the target's trajectories, the
+    children's kernel launches from their heartbeats, none in the parent):
+    the joiner contributed at least one trajectory under an id past the
+    fleet's, and no child restarted."""
+    joiner = join_on_attach()
+    _, rec = procs_run("procs_tcp_join", gmm_ops, imag_ops,
+                       dict(PROCS_PACED, transport="tcp"),
+                       supervisor=joiner, joined=lambda: joiner.joined(),
+                       **trainer_kw)
+    n = rec["run_config"]["n_collectors"]
+    checks = {
+        "the joiner contributed": rec["joined_trajs"] >= 1,
+        "under ids past the fleet's": bool(joiner.ids)
+            and min(joiner.ids) >= n,
+        "no restart": not any(rec["restarts"].values()),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"procs_tcp_join failed: {failed}; joiner "
+                           f"{joiner.ids}, {rec}")
+    return {**rec, "transport": "tcp",
+            "joined": {str(k): v for k, v in joiner.ids.items()}}
+
+
+def hold_for_restarted_learners():
+    """A ``Supervisor`` for the chaos run. On each learner's crash-restart
+    it asks for a store version two past the one at the respawn (the
+    restarted child's republished snapshot, then a step of its own), so
+    the run cannot end before a restarted learner works; it records, for
+    every restart, the seconds from the respawn to the child's first
+    heartbeat and to its first unit of work (a trajectory, an epoch or a
+    policy step); and it fails the run if a restarted learner has not
+    worked ``RESTART_TRAIN_S`` after its respawn."""
+    from repro_torch.core import Supervisor
+    from repro_torch.core.workers import heartbeat_slot
+
+    class HoldForRestartedLearners(Supervisor):
+        def attach(self, trainer):
+            super().attach(trainer)
+            self.respawns = []
+
+        def on_spawn(self, role, proc, resume):
+            if not resume:
+                return
+            tr = self.trainer
+            for r in self.respawns:
+                if r["role"] == role and not r.get("superseded"):
+                    r["superseded"] = True   # it died in its turn
+            rec = {"role": role, "t": time.monotonic(),
+                   "at_s": time.monotonic() - tr._proc_channels.t0,
+                   "first_beat_s": None, "first_work_s": None}
+            if role in ("model", "policy"):
+                need = tr._proc_servers[role].version + 2
+                attr = f"min_final_{role}_version"
+                setattr(tr.run_cfg, attr,
+                        max(getattr(tr.run_cfg, attr), need))
+                rec["min_final_version"] = need
+            self.respawns.append(rec)
+
+        def on_tick(self):
+            tr = self.trainer
+            now = time.monotonic()
+            for r in self.respawns:
+                if r.get("superseded") or r["first_work_s"] is not None:
+                    continue
+                slot = tr._proc_channels.control.read(heartbeat_slot(
+                    r["role"], tr.run_cfg.n_collectors))
+                if r["first_beat_s"] is None and slot["beat"] > r["t"]:
+                    r["first_beat_s"] = slot["beat"] - r["t"]
+                if slot["work"] > 0:
+                    r["first_work_s"] = now - r["t"]
+                elif r["role"] in ("model", "policy") and \
+                        now - r["t"] > RESTART_TRAIN_S:
+                    raise RuntimeError(
+                        f"chaos_run: the restarted {r['role']} child "
+                        f"has not worked {RESTART_TRAIN_S} s after its "
+                        f"respawn {r}")
+
+        def report(self):
+            return [{k: v for k, v in r.items() if k != "t"}
+                    for r in self.respawns]
+    return HoldForRestartedLearners()
+
+
+def chaos_run(gmm_ops, imag_ops, **trainer_kw) -> dict:
+    """``procs_paced``'s configuration with two collectors over the
+    file-backed stores, under ``SupervisorChain(ChaosSupervisor(
+    FaultPlan.generate(CHAOS_SEED, **CHAOS_PLAN)), InvariantMonitor(),
+    HoldForRestartedLearners())`` with ``max_restarts=3``, inside a
+    ``ResourceAuditor`` baseline / audit (the parent's CUDA context and
+    the resource tracker opened before the baseline by ``warmup_ipc``).
+    Beyond ``procs_run``'s checks: zero violations, zero leaks, at least 3
+    faults injected across all three role families, and each restarted
+    learner's last incarnation worked and (on the card) launched its
+    kernel in its own steps. Reports each fault's seconds into the run,
+    each respawn's seconds to its first heartbeat and first work, and the
+    run's wall time."""
+    from repro_torch.chaos import (ChaosSupervisor, FaultPlan,
+                                   InvariantMonitor, ResourceAuditor)
+    from repro_torch.chaos.audit import warmup_ipc
+    from repro_torch.chaos.faults import role_family
+    from repro_torch.core import SupervisorChain
+    plan = FaultPlan.generate(CHAOS_SEED, **CHAOS_PLAN)
+    chaos, monitor = ChaosSupervisor(plan), InvariantMonitor()
+    hold = hold_for_restarted_learners()
+    warmup_ipc(str(trainer_kw.get("device", "cuda")))
+    auditor = ResourceAuditor()
+    auditor.baseline()
+    trainer, rec = procs_run(
+        "chaos_run", gmm_ops, imag_ops, dict(PROCS_PACED, **CHAOS_RUN),
+        supervisor=SupervisorChain(chaos, monitor, hold), chaos=True,
+        **trainer_kw)
+    t0 = trainer._proc_channels.t0
+    # the trainer keeps its last children's process handles (two pipe
+    # descriptors each) for inspection until it is dropped
+    del trainer
+    audit = auditor.audit()
+    faults = chaos.report()
+    families = sorted({role_family(f["role"]) for f in faults["injected"]})
+    kids = rec["children"]
+    kernel = {"model": "gmm_equal", "policy": "imag_fused"}
+    restarted = {}
+    for role, k in kernel.items():
+        if rec["restarts"][role]:
+            last = kids[role]
+            restarted[role] = {
+                "last_work": last["last_work"],
+                "last_step_launches": last["last_launches"][k]
+                - last["last_warmup_launches"][k]}
+    card = CHILD_ROUTE == "cuda"
+    checks = {
+        "no invariant violation": monitor.violations == [],
+        "no leaked resource": audit["ok"],
+        ">= 3 faults injected": faults["n_injected"] >= 3,
+        "faults across all three role families":
+            families == ["collector", "model", "policy"],
+        "a learner restarted": bool(restarted),
+        "each restarted learner worked and launched its kernel": all(
+            r["last_work"] > 0 and (r["last_step_launches"] > 0 if card
+                                    else r["last_step_launches"] == 0)
+            for r in restarted.values()),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"chaos_run failed: {failed}; violations "
+                           f"{monitor.violations}, audit {audit}, faults "
+                           f"{faults}, restarted {restarted}, {rec}")
+    return {**rec, "plan": {"seed": CHAOS_SEED, **CHAOS_PLAN},
+            "faults": [{**{k: f[k] for k in ("kind", "role", "at", "arg",
+                                              "progress")},
+                        "t_s": f["t_monotonic"] - t0}
+                       for f in faults["injected"]],
+            "skipped": faults["skipped"], "families": families,
+            "respawns": hold.report(), "restarted_learners": restarted,
+            "monitor": monitor.report()["stats"], "audit": audit}
 
 
 def stream_intervals(trace_path: Path) -> list:
@@ -2758,6 +3110,15 @@ def main() -> int:
               event["policy_steps"] / event["trajs"]})
     emit({"phase": "procs_restart", **procs_restart(gmm_ops, imag_ops)})
     emit({"phase": "procs_fleet", **procs_fleet(gmm_ops, imag_ops)})
+    tcp = threads_tcp(gmm_ops, imag_ops)
+    emit({"phase": "threads_tcp", **tcp,
+          "threads_paced": {k: paced[k] for k in (
+              "wall_s", "wall_over_collection", "policy_steps",
+              "model_epochs")}})
+    joined = procs_tcp_join(gmm_ops, imag_ops)
+    emit({"phase": "procs_tcp_join", **joined})
+    chaos = chaos_run(gmm_ops, imag_ops)
+    emit({"phase": "chaos_run", **chaos})
 
     emit({"phase": "ssm_model_check",
           **check_ssm_model(MAMBA, init_params, api, InputShape)})
@@ -2797,6 +3158,9 @@ def main() -> int:
         "launches_event_run": event["gmm_equal_launches"],
         "launches_threads_run": paced["gmm_equal_launches"],
         "launches_procs_run": procs["gmm_equal_launches"],
+        "launches_threads_tcp": tcp["gmm_equal_launches"],
+        "launches_procs_tcp_join": joined["gmm_equal_launches"],
+        "launches_chaos_run": chaos["gmm_equal_launches"],
         "max_abs_err": max(r["max_abs_err"]
                            for r in gmm_rows["equal"].values()),
         "ms": eq["ms"], "plain_ms": eq["plain_ms"],
@@ -2829,6 +3193,9 @@ def main() -> int:
         "launches_event_run": event["imag_fused_launches"],
         "launches_threads_run": paced["imag_fused_launches"],
         "launches_procs_run": procs["imag_fused_launches"],
+        "launches_threads_tcp": tcp["imag_fused_launches"],
+        "launches_procs_tcp_join": joined["imag_fused_launches"],
+        "launches_chaos_run": chaos["imag_fused_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in imag_rows.values()),
         "ms": im["ms"], "plain_ms": im["plain_ms"],
         "bound_ms": im["bound_ms"], "bound_by": im["bound_by"],

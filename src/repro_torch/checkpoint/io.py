@@ -143,11 +143,23 @@ def _device_of(x):
     return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
 
 
+def layout_codec(skeleton, dtypes, shapes) -> "LeafCodec":
+    """A codec of ``skeleton``'s structure with leaves of the named dtypes
+    and shapes, built without a leaf's data: it decodes into CPU tensors."""
+    def empty(dtype: str, shape):
+        dt = (_EXOTIC_BY_NAME[dtype][0] if dtype in _EXOTIC_BY_NAME
+              else torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype)
+        return torch.empty(tuple(shape), dtype=dt)
+    return LeafCodec(unflatten(skeleton, [empty(d, s)
+                                          for d, s in zip(dtypes, shapes)]))
+
+
 class LeafCodec:
     """Flat-key codec for ONE tree structure: host-materialises leaves into
     their storable (npz-safe) dtypes and restores them. Structure, shapes,
     dtypes and devices are fixed at construction from a template, so encode
-    and decode never re-derive them."""
+    and decode never re-derive them. A codec pickles to its layout alone (no
+    leaf data), and the copy decodes into CPU tensors."""
 
     def __init__(self, template):
         self.template = template
@@ -161,6 +173,15 @@ class LeafCodec:
             else np.dtype(d) for d in self.dtypes]
         self.nbytes = [int(np.prod(s, dtype=np.int64)) * sd.itemsize
                        for s, sd in zip(self.shapes, self.storable_dtypes)]
+
+    def layout(self):
+        """(skeleton, dtypes, shapes): the codec without its template's
+        data; ``layout_codec(*codec.layout())`` decodes into CPU tensors."""
+        return (unflatten(self.template, [0] * self.n_leaves), self.dtypes,
+                self.shapes)
+
+    def __reduce__(self):
+        return layout_codec, self.layout()
 
     @property
     def n_leaves(self) -> int:

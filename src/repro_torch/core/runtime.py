@@ -59,9 +59,15 @@ eval. Collector ``i`` draws from ``collector_generator(collector_seed,
 i)``; the model and policy workers seed their own generators with theirs;
 the eval generator lives on the trainer's device.
 
-Not ported (each raises, naming ROADMAP.md): ``transport="tcp"`` and role
-meshes (``mesh=``, ``roles=``). ``RunConfig``'s fields for them are kept,
-with the reference's names and defaults, and ignored.
+Transport. ``RunConfig(transport="tcp")`` routes the threads and procs
+engines' stores through one socket control plane (``repro_torch.net``,
+the reference's wire format) bound to ``RunConfig.bind``; the workers do
+not know which transport they hold. A procs run over tcp publishes its
+``ProcSpec`` on the plane, so collectors on other hosts can join it
+(``--connect``). The event engine refuses tcp, as the reference does.
+
+Not ported (each raises, naming ROADMAP.md): role meshes (``mesh=``,
+``roles=``).
 """
 from __future__ import annotations
 
@@ -69,6 +75,7 @@ import contextlib
 import dataclasses
 import multiprocessing as mp
 import os
+import pickle
 import shutil
 import sys
 import tempfile
@@ -142,9 +149,15 @@ class RunConfig:
     # with total_trajs < min_warmup_trajs.
     min_final_model_version: int = 0
     min_final_policy_version: int = 0
-    # the tcp transport is not ported: kept so that one config means the
-    # same run in both packages
+    # the transport behind the servers: "shm" keeps the in-process stores
+    # (threads) and the file-backed ones (procs); "tcp" routes every store
+    # through the socket control plane (repro_torch.net): the same
+    # version gating and exact-criterion tickets across a machine
+    # boundary, and remote collectors may join a live procs run with
+    # --connect. Threads and procs modes only.
     transport: str = "shm"
+    # tcp: "host:port" the control plane listens on. None = loopback with
+    # an ephemeral port; "0.0.0.0:5555" publishes the plane for joiners
     bind: Optional[str] = None
 
 
@@ -159,8 +172,30 @@ def run_seeds(seed: int) -> tuple:
 
 def _not_ported(what: str) -> str:
     return (f"{what} is not ported to repro_torch yet: only the event, "
-            "threads and procs engines over the in-host stores are "
+            "threads and procs engines without a role mesh are "
             "(ROADMAP.md §1, open items)")
+
+
+# Every run and checkpoint directory this process's procs trainers created,
+# recorded where they are made, so that a resource auditor can check that
+# none outlives its run without listing the host's temporary directory
+_DIRS_LOCK = threading.Lock()
+_CREATED_DIRS: List[str] = []
+
+
+def _made_dir(prefix: str) -> str:
+    path = tempfile.mkdtemp(prefix=prefix)
+    with _DIRS_LOCK:
+        _CREATED_DIRS.append(path)
+    return path
+
+
+def created_run_dirs() -> tuple:
+    """The run and checkpoint directories this process's procs trainers
+    created, removed since or not (a caller-given ``ckpt_dir`` is not
+    among them)."""
+    with _DIRS_LOCK:
+        return tuple(_CREATED_DIRS)
 
 
 def clear_eval_cache() -> None:
@@ -321,7 +356,8 @@ def _child_report(slot: Dict[str, float], past: Dict[str, float]) -> dict:
     """One role's heartbeat telemetry, its dead incarnations' work, step
     seconds, warm-ups and launches added (``past``). ``launches`` holds
     every launch of the role, its warm-ups' (``warmup_launches``)
-    included."""
+    included; ``last_launches`` / ``last_warmup_launches`` are the live
+    (last) incarnation's own, so a restarted child's work shows apart."""
     def total(k):
         return slot[k] + past.get(k, 0.0)
     return {"work": int(total("work")), "work_s": total("work_s"),
@@ -331,6 +367,11 @@ def _child_report(slot: Dict[str, float], past: Dict[str, float]) -> dict:
                          for k in LAUNCH_COUNTERS},
             "warmup_launches": {k: int(total(f"warmup:{k}"))
                                 for k in LAUNCH_COUNTERS},
+            "last_work": int(slot["work"]),
+            "last_launches": {k: int(slot[f"launches:{k}"])
+                              for k in LAUNCH_COUNTERS},
+            "last_warmup_launches": {k: int(slot[f"warmup:{k}"])
+                                     for k in LAUNCH_COUNTERS},
             "route": "cuda" if slot["cuda"] else "plain",
             "compile_count": int(slot["compiles"]),
             "resumed_step": int(slot["resumed"]) - 1}
@@ -402,15 +443,11 @@ class AsyncTrainer:
         if run_cfg.transport not in ("shm", "tcp"):
             raise ValueError(f"transport must be 'shm' or 'tcp', got "
                              f"{run_cfg.transport!r}")
-        if run_cfg.transport == "tcp" and mode != "event":
-            raise NotImplementedError(_not_ported(
-                f'transport="tcp" (mode={mode!r})'))
-        if run_cfg.transport == "tcp":
+        if run_cfg.transport == "tcp" and mode == "event":
             raise ValueError(
                 'transport="tcp" needs a real engine (mode="threads" or '
                 '"procs"): the event engine is a single-process virtual-'
-                "clock simulation with nothing to transport; "
-                + _not_ported('transport="tcp"'))
+                "clock simulation with nothing to transport")
         if mode == "procs":
             if algo_cfg is None or pol_cfg is None:
                 raise ValueError(
@@ -428,9 +465,23 @@ class AsyncTrainer:
         self.device = resolve_device(device)
         sc, sm, sp, se = run_seeds(run_cfg.seed)
         self._eval_gen = torch.Generator(self.device).manual_seed(se)
-        self.data_server = DataServer()
-        self.model_server = ParameterServer()
-        self.policy_server = ParameterServer()
+        # threads + tcp: every store behind ONE control plane, owned by
+        # this trainer for one run; the codecs come from the first pushes
+        # (the workers that own the templates are built below). procs mode
+        # picks its transport inside _run_procs
+        self._plane = None
+        if run_cfg.transport == "tcp" and mode == "threads":
+            from repro_torch.net import ControlPlane
+            self._plane = ControlPlane(run_cfg.bind or "127.0.0.1:0")
+            self.model_server = self._plane.parameter_server("model")
+            self.policy_server = self._plane.parameter_server("policy")
+            self.data_server = self._plane.data_server(
+                n_collectors=run_cfg.n_collectors,
+                push_timeout=run_cfg.push_timeout_s)
+        else:
+            self.data_server = DataServer()
+            self.model_server = ParameterServer()
+            self.policy_server = ParameterServer()
         self.policy_worker = PolicyImprovementWorker(
             algo, self.policy_server, self.model_server, sp,
             device=self.device)
@@ -459,11 +510,32 @@ class AsyncTrainer:
         self.recorder = _Recorder(env, run_cfg.eval_rollouts)
 
     def run(self) -> List[Dict[str, float]]:
-        if self.mode == "threads":
-            return self._run_threads()
-        if self.mode == "procs":
-            return self._run_procs()
-        return self._run_event()
+        try:
+            if self.mode == "threads":
+                return self._run_threads()
+            if self.mode == "procs":
+                return self._run_procs()
+            return self._run_event()
+        finally:
+            if self._plane is not None:
+                self._close_plane()
+
+    def _close_plane(self) -> None:
+        """Threads + tcp: record the final versions and count in
+        ``net_info``, then close the clients and the plane (the trainer
+        owns the plane for one run)."""
+        try:
+            self.net_info = {
+                "model_version": int(self.model_server.version),
+                "policy_version": int(self.policy_server.version),
+                "trajs": int(self.data_server.total_pushed),
+                "addr": "%s:%d" % self._plane.connect_addr}
+        finally:
+            for srv in (self.model_server, self.policy_server,
+                        self.data_server):
+                srv.close()
+            self._plane.close()
+            self._plane = None
 
     def _run_event(self):
         rc = self.run_cfg
@@ -678,25 +750,44 @@ class AsyncTrainer:
         ctx = mp.get_context("spawn")   # never fork a process with CUDA
         self._build_kernels()
         ckpt_dir = Path(rc.ckpt_dir) if rc.ckpt_dir else \
-            Path(tempfile.mkdtemp(prefix="repro_torch_procs_ckpt_"))
+            Path(_made_dir("repro_torch_procs_ckpt_"))
         n_slots = heartbeat_slots(rc.n_collectors)
         # every IPC resource belongs to this ExitStack: whatever path
         # leaves the method closes the stores, and the run's directory
         # (registered first, so removed last) takes every file with it
         with contextlib.ExitStack() as stack:
-            run_dir = tempfile.mkdtemp(prefix="repro_torch_procs_")
+            run_dir = _made_dir("repro_torch_procs_")
             stack.callback(shutil.rmtree, run_dir, True)
             self._run_dir = run_dir
-            model_srv = stack.enter_context(
-                ShmParameterServer(self.model_worker.params, dir=run_dir))
-            policy_srv = stack.enter_context(ShmParameterServer(
-                self.policy_worker.state["policy"], dir=run_dir))
-            # ticket-armed: collector processes claim slots from the shared
-            # counters, so the criterion lands exactly even across
-            # collector crashes (the parent refunds in-flight tickets)
-            data_srv = stack.enter_context(ProcDataServer(
-                n_collectors=rc.n_collectors, target=rc.total_trajs,
-                push_timeout=rc.push_timeout_s, dir=run_dir))
+            # the transport seam: everything after this block is the same
+            # for both families of stores (pull / version for snapshots and
+            # completion, refund_inflight for crash refunds)
+            plane = None
+            if rc.transport == "tcp":
+                from repro_torch.net import ControlPlane
+                plane = stack.enter_context(
+                    ControlPlane(rc.bind or "127.0.0.1:0"))
+                model_srv = stack.enter_context(plane.parameter_server(
+                    "model", self.model_worker.params))
+                policy_srv = stack.enter_context(plane.parameter_server(
+                    "policy", self.policy_worker.state["policy"]))
+                # the ticket counters live on the plane, so remote joiners
+                # (--connect) share the one exact criterion
+                data_srv = stack.enter_context(plane.data_server(
+                    n_collectors=rc.n_collectors, target=rc.total_trajs,
+                    push_timeout=rc.push_timeout_s))
+            else:
+                model_srv = stack.enter_context(ShmParameterServer(
+                    self.model_worker.params, dir=run_dir))
+                policy_srv = stack.enter_context(ShmParameterServer(
+                    self.policy_worker.state["policy"], dir=run_dir))
+                # ticket-armed: collector processes claim slots from the
+                # shared counters, so the criterion lands exactly even
+                # across collector crashes (the parent refunds in-flight
+                # tickets)
+                data_srv = stack.enter_context(ProcDataServer(
+                    n_collectors=rc.n_collectors, target=rc.total_trajs,
+                    push_timeout=rc.push_timeout_s, dir=run_dir))
             control = ProcControl(n_slots, dir=run_dir)
             stack.callback(control.close)
             reader, writer = ctx.Pipe(duplex=False)
@@ -708,6 +799,11 @@ class AsyncTrainer:
                             self.pol_cfg, rc, rc.seed,
                             exploration=self.exploration,
                             device=str(self.device))
+            if plane is not None:
+                # the spec remote joiners (--connect) rebuild a collector
+                # from; they claim from the same ticket counters
+                plane.set_join_spec(pickle.dumps(spec))
+                self.net_info = {"addr": "%s:%d" % plane.connect_addr}
             self._proc_servers = {"model": model_srv, "policy": policy_srv,
                                   "data": data_srv}
             self._proc_channels = ch

@@ -40,7 +40,7 @@ from typing import (Any, Dict, List, Optional, Protocol, Tuple,
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.io import (_EXOTIC_BY_NAME, LeafCodec, flatten,
+from repro_torch.checkpoint.io import (LeafCodec, flatten, layout_codec,
                                        unflatten)
 from repro_torch.kernels import LAUNCH_COUNTERS
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -678,12 +678,8 @@ class ShmParameterServer(_MappedFile):
         """The codec of a CPU template rebuilt from the layout: pulls
         decode into CPU tensors of the template's dtypes and shapes."""
         if self._codec is None:
-            def empty(dtype: str, shape):
-                dt = (_EXOTIC_BY_NAME[dtype][0] if dtype in _EXOTIC_BY_NAME
-                      else torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype)
-                return torch.empty(shape, dtype=dt)
-            self._codec = LeafCodec(unflatten(
-                self._skeleton, [empty(d, s) for d, s in self._leaves]))
+            self._codec = layout_codec(self._skeleton,
+                                       *zip(*self._leaves))
         return self._codec
 
     def _leaf_views(self):
@@ -981,18 +977,26 @@ class ProcDataServer(_MappedFile):
 
     @property
     def total_pushed(self) -> int:
-        with self._locked():
-            return self._word(self._TOTAL)
+        """One aligned 8-byte read, no lock: the supervising parent reads it
+        every tick, and a collector stopped (SIGSTOP) while it holds the
+        counter lock must not stall the parent, which resumes it. After the
+        creator's ``close`` it is the count at the close."""
+        if self._closed and self._owner:
+            return self._final_total
+        return self._word(self._TOTAL)
 
     def __len__(self) -> int:
         return len(self._ready())
 
     def close(self) -> None:
         """Drop this process's mapping; the creator also removes the spool
-        (undrained items included) and its audit entry. Idempotent. A
-        child's handle stays usable after close: it maps again on use."""
+        (undrained items included) and its audit entry, and keeps the final
+        ``total_pushed``. Idempotent. A child's handle stays usable after
+        close: it maps again on use."""
         if self._closed:
             return
+        if self._owner:
+            self._final_total = self._word(self._TOTAL)
         self._closed = True
         self._unmap()
         if self._owner:

@@ -11,9 +11,18 @@ the synchronous engines::
 It runs on the card; ``--device cpu`` runs it on the CPU. The flags are
 the reference's, plus ``--device``; with ``--mode procs`` the ``--out``
 JSON gains the reference's ``procs`` block (restarts, trajectories,
-versions, the snapshot directory) and each child's kernel launches. What
-is not ported exits with a message that names ROADMAP.md: ``--transport
-tcp``, ``--mesh``, ``--connect`` and ``--task lm``.
+versions, the snapshot directory) and each child's kernel launches.
+``--transport tcp`` (threads and procs modes) routes the stores through a
+socket control plane bound to ``--bind``; ``--connect HOST:PORT`` trains
+nothing and joins a live procs run's plane as ``--n-collectors`` more
+collectors::
+
+    python -m repro_torch.launch.train --task mbrl --mode procs \
+        --transport tcp --bind 0.0.0.0:7447 --trajs 60
+    python -m repro_torch.launch.train --connect trainer-host:7447
+
+What is not ported exits with a message that names ROADMAP.md: ``--mesh``
+and ``--task lm``.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ import time
 def _not_ported(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to repro_torch yet: only the "
                       "event, threads and procs engines of --task mbrl "
-                      "over the in-host stores are (ROADMAP.md §1, open "
+                      "without a role mesh are (ROADMAP.md §1, open "
                       "items)")
 
 
@@ -38,8 +47,6 @@ def run_mbrl(args):
     from repro_torch.mbrl.dynamics import EnsembleConfig
     from repro_torch.mbrl.policy import PolicyConfig
 
-    if args.transport != "shm":
-        raise _not_ported(f"--transport {args.transport}")
     if args.mesh != "none":
         raise _not_ported("--mesh")
     env = make_env(args.env)
@@ -61,6 +68,9 @@ def run_mbrl(args):
                    collect_noise=collect_noise,
                    envs_per_collector=args.envs_per_collector,
                    transport=args.transport, bind=args.bind)
+    if args.transport == "tcp" and args.engine != "async":
+        raise SystemExit("--transport tcp needs --engine async "
+                         "(the control plane serves the async servers)")
     if args.n_collectors > 1 and args.engine != "async":
         raise SystemExit("--n-collectors > 1 needs --engine async "
                          "(collector fleets belong to the async engine)")
@@ -116,6 +126,22 @@ def run_mbrl(args):
     return trace
 
 
+def run_join(args):
+    """``--connect host:port``: no training here; this process gives
+    ``--n-collectors`` collectors to a live run's control plane and exits
+    when the run's global criterion is fully claimed."""
+    from repro_torch.net import join_as_collectors
+    t0 = time.perf_counter()
+    n = join_as_collectors(args.connect, n_collectors=args.n_collectors,
+                           device=args.device)
+    print(json.dumps({"connect": args.connect,
+                      "n_collectors": args.n_collectors,
+                      "trajs_contributed": n,
+                      "real_seconds": round(time.perf_counter() - t0, 1)},
+                     indent=1))
+    return n
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train",
                                  description=__doc__)
@@ -160,13 +186,21 @@ def parser() -> argparse.ArgumentParser:
                     help="collector,model,policy share of a role mesh "
                          "(ignored: role meshes are not ported)")
     ap.add_argument("--transport", default="shm", choices=["shm", "tcp"],
-                    help="shm = in-process servers (default); tcp is not "
-                         "ported")
+                    help="how workers reach the servers: shm = in-process "
+                         "or file-backed stores (default); tcp = socket "
+                         "control plane (repro_torch.net), reachable from "
+                         "other hosts via --bind")
     ap.add_argument("--bind", default=None,
-                    help="tcp transport only (not ported)")
+                    help="tcp transport: HOST:PORT the control plane "
+                         "listens on (default 127.0.0.1:<ephemeral>); "
+                         "bind :PORT or 0.0.0.0:PORT to let remote "
+                         "collectors --connect")
     ap.add_argument("--connect", default=None,
-                    help="join a live run as remote collectors (not "
-                         "ported)")
+                    help="join a LIVE run as extra remote collectors "
+                         "instead of training: HOST:PORT of its control "
+                         "plane (with --n-collectors for fan-out). Connect "
+                         "only to planes you trust: the join ticket is a "
+                         "pickle (docs/WIRE_PROTOCOL.md)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="procs mode: where the supervisor snapshots "
                          "params + versions (default: a fresh temporary "
@@ -184,7 +218,7 @@ def main(argv=None):
     if args.task != "mbrl":
         raise _not_ported(f"--task {args.task}")
     if args.connect:
-        raise _not_ported("--connect")
+        return run_join(args)
     return run_mbrl(args)
 
 

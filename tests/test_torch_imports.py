@@ -46,6 +46,12 @@ SLICE7 = [("core/servers.py", ["ShmParameterServer", "ProcDataServer",
           ("core/workers.py", ["ProcSpec", "ProcChannels", "heartbeat_slot",
                                "heartbeat_slots", "proc_worker_main"]),
           ("core/runtime.py", ["Supervisor", "SupervisorChain"])]
+# the tcp control plane and the chaos tier (they extend core/runtime.py,
+# core/servers.py, checkpoint/io.py and launch/train.py, scanned above)
+SLICE8 = ["net/__init__.py", "net/frame.py", "net/control.py",
+          "net/client.py", "net/join.py", "chaos/__init__.py",
+          "chaos/faults.py", "chaos/monitor.py", "chaos/audit.py",
+          "chaos/soak.py"]
 EXAMPLES = ["torch_quickstart.py", "torch_pr2_arm.py",
             "torch_async_vs_sync.py"]
 
@@ -67,7 +73,7 @@ def test_no_jax_or_reference_import(path):
 
 
 @pytest.mark.parametrize("module", SLICE2 + SLICE3 + SLICE4 + SLICE5
-                         + SLICE6)
+                         + SLICE6 + SLICE8)
 def test_slice_module_is_scanned(module):
     assert PORT / module in FILES
 

@@ -277,25 +277,29 @@ def test_real_clock_reads_the_monotonic_clock():
     assert clock.now() - t0 >= 0.01
 
 
-@pytest.mark.parametrize("kw,err", [
-    # the threads and procs engines are ported; over the tcp transport
-    # they are not, nor is a per-process role mesh under procs
-    (dict(mode="threads", rc=dict(transport="tcp")), NotImplementedError),
-    (dict(mode="procs", rc=dict(transport="tcp")), NotImplementedError),
-    (dict(mesh=object()), NotImplementedError),
-    (dict(roles=object()), NotImplementedError),
+@pytest.mark.parametrize("kw,err,match", [
+    # the threads and procs engines and the tcp transport are ported; a
+    # per-process role mesh under either engine is not
+    (dict(mode="threads", roles=object()), NotImplementedError,
+     "ROADMAP.md"),
+    (dict(mode="procs", roles=object()), ValueError, "ROADMAP.md"),
+    (dict(mesh=object()), NotImplementedError, "ROADMAP.md"),
+    (dict(roles=object()), NotImplementedError, "ROADMAP.md"),
     (dict(mode="procs", supervisor=TR.Supervisor(), mesh=object()),
-     ValueError),
-    (dict(mode="procs", supervisor=TR.Supervisor(),
-          rc=dict(transport="tcp")), NotImplementedError),
-    (dict(rc=dict(transport="tcp")), ValueError),
+     ValueError, "ROADMAP.md"),
+    (dict(mode="procs", supervisor=TR.Supervisor(), roles=object()),
+     ValueError, "ROADMAP.md"),
+    # the event engine refuses tcp with the reference's error
+    (dict(rc=dict(transport="tcp")), ValueError,
+     'transport="tcp" needs a real engine'),
 ], ids=["threads", "procs", "mesh", "roles", "supervisor",
         "procs_supervisor", "tcp"])
-def test_unported_engines_and_options_raise_naming_the_roadmap(kw, err):
+def test_unported_engines_and_options_raise_naming_the_roadmap(kw, err,
+                                                                match):
     env, ens, algo = _torch_parts()
     kw = dict(kw)
     rc = TR.RunConfig(**kw.pop("rc", {}))
-    with pytest.raises(err, match="ROADMAP.md"):
+    with pytest.raises(err, match=match):
         TR.AsyncTrainer(env, ens, algo, rc, device="cpu", **kw)
 
 
@@ -379,15 +383,21 @@ def test_launcher_runs_each_engine_on_the_cpu(engine, tmp_path):
     assert trace[-1]["trajs"] >= trajs
 
 
-@pytest.mark.parametrize("flags", [
-    # the threads and procs engines are ported; over the tcp transport
-    # they are not
-    ["--mode", "threads", "--transport", "tcp"],
-    ["--mode", "procs", "--transport", "tcp"], ["--transport", "tcp"],
-    ["--mesh", "auto"], ["--connect", "127.0.0.1:5555"], ["--task", "lm"],
+@pytest.mark.parametrize("flags,err,match", [
+    # the threads and procs engines, the tcp transport and --connect are
+    # ported; a role mesh under any mode and --task lm are not
+    (["--mode", "threads", "--mesh", "auto"], SystemExit, "ROADMAP.md"),
+    (["--mode", "procs", "--mesh", "auto"], SystemExit, "ROADMAP.md"),
+    # the event mode over tcp meets the reference's error
+    (["--transport", "tcp"], ValueError,
+     'transport="tcp" needs a real engine'),
+    (["--mesh", "auto"], SystemExit, "ROADMAP.md"),
+    (["--task", "lm", "--connect", "127.0.0.1:5555"], SystemExit,
+     "ROADMAP.md"),
+    (["--task", "lm"], SystemExit, "ROADMAP.md"),
 ], ids=["threads", "procs", "tcp", "mesh", "connect", "lm"])
-def test_launcher_refuses_what_is_not_ported(flags):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
+def test_launcher_refuses_what_is_not_ported(flags, err, match):
+    with pytest.raises(err, match=match):
         launch.main(LAUNCH_SIZES + ["--device", "cpu"] + flags)
 
 

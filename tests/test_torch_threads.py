@@ -414,19 +414,22 @@ def test_chip_smoke_threads_phases_count_and_check_on_the_cpu(
     chip = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip)
     monkeypatch.setattr(chip, "engine_parts", _parts)
-    monkeypatch.setattr(chip, "ENGINE_TRAJS", 6)
+    # 12 trajectories of 0.5 s: the model's first push comes after
+    # min_warmup_trajs (4 trajectories, ~2 s), which leaves the policy
+    # thread ~4 s for its steps on a loaded host
+    monkeypatch.setattr(chip, "ENGINE_TRAJS", 12)
     monkeypatch.setattr(chip, "THREADS_SPEED", 20.0)
     monkeypatch.setattr(chip, "LEARN_ENV", "pendulum")
     monkeypatch.setattr(chip, "POLICY_HIDDEN", POLICY_HIDDEN)
     _, paced = chip.threads_paced(gmm_ops, imag_ops, device="cpu")
-    assert paced["trajs"] == 6 and paced["collection_time_s"] == 3.0
-    assert paced["wall_s"] >= 3.0 and paced["shapes"] == [1, 1]
+    assert paced["trajs"] == 12 and paced["collection_time_s"] == 6.0
+    assert paced["wall_s"] >= 6.0 and paced["shapes"] == [1, 1]
     assert paced["imag_fused_launches"] == \
         paced["policy_steps"] * IMAGINE_HORIZON > 0
     assert paced["gmm_equal_launches"] > 0
-    assert paced["worker_calls"]["collect"]["work"] == 6
+    assert paced["worker_calls"]["collect"]["work"] == 12
     fleet = chip.threads_fleet(gmm_ops, imag_ops, device="cpu")
-    assert sum(fleet["trajs_per_collector"]) == 6
+    assert sum(fleet["trajs_per_collector"]) == 12
     free = chip.model_free(device="cpu")
     assert [r["time"] for r in free["trace"]] == [52.5, 105.0]
     json.dumps([paced, fleet, free])
