@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
    the tensor-core (``HMMA``) instructions of each library counted by
    ``cuobjdump -sass``; the phase fails if any of the four has none.
 2. ``kernel_check``: the flash-attention kernel against its plain PyTorch
-   version on the card at the serving path's shapes and at edge shapes,
+   version on the card at the serving path's shapes, at the world
+   model's head dims (32, and 24 in the D = 32 build) and at edge shapes,
    with times of the kernel, the plain version and one PyTorch library
    call (SDPA), the kernel's achieved TFLOP/s, and the least time the card
    could take. Times are device time per call, from CUDA events around
@@ -173,10 +174,32 @@ Phases, each printing one JSON line:
 12. ``ssm_forward``: the stateless ``loss_forward`` at batch 4, 2,048
    tokens, forward only: 64 launches, tokens/s, the scan's share of
    device time.
-13. ``kernels``: one entry per kernel, as the port's records expect;
+13. The transformer world model's path. ``dense_lockstep``: lock-step
+   serving of the full 40-layer GLM-4-9B in bf16 through ``api.build``
+   at ``examples/serve_world_model.py``'s shape (batch 8, 48-token
+   prompts, the cache grown to 65 slots, 16 greedy decodes), then the
+   int8 KV cache fed the same tokens: 40 flash launches a prefill, none
+   in decode; reports time to first token, decode tokens/s, the serving
+   path's peak memory (init_params' apart), and the int8 run's largest
+   logit gap to the fp run and its greedy agreement. Then the kernel's
+   prefill against the plain attention's and the decodes from either
+   cache: within ``LOGITS_ATOL`` at 2 layers of the full width, within
+   ``LOCKSTEP_FULL_ATOL`` at all 40. ``lm_train``: ``api.build(...,
+   "train")`` on ``examples/train_world_model.py``'s ``wm-100m``, 50 steps
+   over ``DynamicsTokenStream``'s first 4 batches: the loss halves; no
+   flash launch (the step trains through the plain attention by design).
+   ``wm_mbrl``: ``WorldModelDynamics`` at ``WMConfig`` defaults (head dim
+   32) fitted on 6 pendulum trajectories for 12 epochs (its predict MSE
+   below 0.3x its start), then 3 ME-TRPO ``improve`` steps at
+   ``AlgoConfig`` defaults through ``predict_fn``: 100 flash launches a
+   step (50 imagined steps × 2 layers), finite imagined returns, and the
+   kernel prefill against the plain one within ``LOGITS_ATOL``.
+14. ``kernels``: one entry per kernel, as the port's records expect;
    ``gmm_equal`` and ``imag_fused`` also give their ``event_run``,
    ``threads_paced``, ``procs_paced``, ``threads_tcp``, ``procs_tcp_join``
-   and ``chaos_run`` launches.
+   and ``chaos_run`` launches; flash attention its ``dense_lockstep``,
+   ``lm_train`` and ``wm_mbrl`` launches and its times at the world
+   model's prefill shape (``wm_path``).
 
 Each kernel's launches are counted from 0 just before the phase that
 drives its path (``serve``, ``model_learn``, ``assigned_predict``,
@@ -184,7 +207,8 @@ drives its path (``serve``, ``model_learn``, ``assigned_predict``,
 ``sequential_run``, ``quickstart``, ``threads_paced``, ``threads_fleet``,
 ``threads_profile``, ``procs_paced``, ``procs_restart``, ``procs_fleet``,
 ``threads_tcp``, ``procs_tcp_join``, ``chaos_run``,
-``ssm_serve``, ``ssm_forward``) and
+``ssm_serve``, ``ssm_forward``, ``dense_lockstep``, ``lm_train``,
+``wm_mbrl``) and
 read just after it (the procs phases' children count from 0 in their own
 processes and report in their heartbeats); comparison launches never
 count. The line before the
@@ -438,8 +462,20 @@ ATTN_CASES = [
     ("long_s4096", 1, 4096, 4096, 32, 2, 128, True, 0, torch.bfloat16),
     ("long_s4096_noncausal", 1, 4096, 4096, 32, 2, 128, False, 0,
      torch.bfloat16),
+    # head dims below 64: the world model's (32, WMConfig's defaults; 24,
+    # its examples'), the second in the D = 32 build with its tail zeroed
+    ("wm_prefill_b64_s4", 64, 4, 4, 4, 4, 32, True, 0, torch.bfloat16),
+    ("d32_s64", 1, 64, 64, 32, 2, 32, True, 0, torch.bfloat16),
+    ("d32_s64_f32", 1, 64, 64, 32, 2, 32, True, 0, torch.float32),
+    ("d24_s64", 1, 64, 64, 32, 2, 24, True, 0, torch.bfloat16),
+    ("d24_s64_f32", 1, 64, 64, 32, 2, 24, True, 0, torch.float32),
+    ("d32_s4096", 1, 4096, 4096, 32, 2, 32, True, 0, torch.bfloat16),
+    ("d32_s4096_f32", 1, 4096, 4096, 32, 2, 32, True, 0, torch.float32),
+    ("d24_s4096", 1, 4096, 4096, 32, 2, 24, True, 0, torch.bfloat16),
+    ("d24_s4096_f32", 1, 4096, 4096, 32, 2, 24, True, 0, torch.float32),
 ]
 MAIN_PATH_CASE = "prefill_s64"
+WM_PATH_CASE = "wm_prefill_b64_s4"
 
 
 def attention_bound_ms(q, k, v, mask) -> tuple:
@@ -2973,6 +3009,339 @@ def ssm_forward(model, LM, ssd_ops) -> dict:
             "top_kernels_ms": [[n[:80], v] for n, v in top]}
 
 
+# ---------------------------------------------------------------- phase 13
+
+LOCKSTEP = dict(batch=8, prompt=48, new=16)   # examples/serve_world_model.py
+# kernel vs plain logits through all 40 bf16 layers: the kernel rounds P
+# to bf16 where the plain version keeps it in f32, one bf16 ulp of some
+# attention outputs that 40 layers compound (about 0.11 at the prefill
+# and 0.13 over the decodes on an H100, logits of std 1.0 and at most
+# 4.9); LOGITS_ATOL holds at 2 layers
+LOCKSTEP_FULL_ATOL = 0.25
+# examples/train_world_model.py's --big model, its batch and sequence
+LM_TRAIN_CFG = dict(name="wm-100m", family="dense", num_layers=12,
+                    d_model=768, num_heads=12, num_kv_heads=4, d_ff=3072,
+                    vocab_size=8192)
+# 50 steps over the stream's first 4 batches (each token seen ~12 times);
+# on fresh batches each of the 8,192 tokens is seen only ~3 times in 50
+# steps (labels equal tokens: an identity to learn token by token), too
+# few for the loss to halve
+LM_TRAIN = dict(batch=8, seq=64, steps=50, batches=4)
+WM_TRAJS, WM_EPOCHS, WM_IMPROVE_STEPS = 6, 12, 3
+WM_MSE_RATIO = 0.3    # tests/test_wm_dynamics.py's bar
+
+
+def _greedy(logits, cfg):
+    return torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None].to(
+        torch.int32)
+
+
+def _ms_since(t0: float) -> float:
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _decode_run(dec, model, cache, tok, cfg, n_new, feed=None):
+    """``n_new`` lock-step decodes from ``tok``: greedy, or fed ``feed``'s
+    tokens. Each tick ends with its token on the host. Returns the logits,
+    the tokens fed after the first and the tick times."""
+    logits_seq, tokens, tick_ms = [], [], []
+    for i in range(n_new):
+        t0 = time.perf_counter()
+        logits, cache = dec.fn(model, cache, tok)
+        nxt = _greedy(logits, cfg)
+        nxt.cpu()
+        tick_ms.append(_ms_since(t0))
+        logits_seq.append(logits)
+        tok = nxt if feed is None else feed[i]
+        tokens.append(nxt)
+    return logits_seq, tokens, tick_ms, cache
+
+
+def lockstep_vs_plain(cfg, model, api, InputShape, tokens, n_new):
+    """The comparison: the lock-step prefill through the kernel and
+    through the plain attention, and ``n_new`` decodes from each cache
+    fed the same greedy tokens. Returns the largest logit differences
+    (prefill, decode), the kernel prefill's logits and its greedy run."""
+    B, S = tokens.shape
+    shape = InputShape("p", S, B, "prefill")
+    dec = api.build(cfg, InputShape("d", S + n_new, B, "decode"))
+    caches = []
+    for impl in (None, "ref"):
+        lg, cache = api.build(cfg, shape, attn_impl=impl).fn(
+            model, {"tokens": tokens})
+        caches.append((lg, api.grow_cache(cache, S + n_new + 1)))
+    (lg_k, cache_k), (lg_r, cache_r) = caches
+    tok = _greedy(lg_k, cfg)
+    k_logits, k_tokens, _, _ = _decode_run(dec, model, cache_k, tok, cfg,
+                                           n_new)
+    r_logits, _, _, _ = _decode_run(dec, model, cache_r, tok, cfg, n_new,
+                                    feed=k_tokens)
+    return ((lg_k - lg_r).abs().max().item(),
+            max((a - b).abs().max().item()
+                for a, b in zip(k_logits, r_logits)), lg_r)
+
+
+def dense_lockstep(CONFIG, init_params, api, InputShape, fa_ops) -> dict:
+    """Lock-step serving of the full 40-layer GLM-4-9B in bf16 through
+    ``api.build``: ``serve_world_model.py``'s shape (batch 8, 48-token
+    prompts), the cache grown to 65 slots, 16 greedy decodes; then the
+    same with the int8 cache, fed the fp run's tokens. The prefills and
+    decodes of both runs are the main path. The comparisons, after the
+    counts are read: the kernel's prefill against the plain attention's
+    and the decodes from either cache, at 2 layers within
+    ``LOGITS_ATOL`` and at all 40 within ``LOCKSTEP_FULL_ATOL``."""
+    cfg = CONFIG
+    B, S, n_new = LOCKSTEP["batch"], LOCKSTEP["prompt"], LOCKSTEP["new"]
+    slots = S + n_new + 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, 3)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()  # from here: the serving path
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    shape = InputShape("p", S, B, "prefill")
+    pre = api.build(cfg, shape)
+    pre_q = api.build(cfg, shape, kv_int8=True)
+    dec = api.build(cfg, InputShape("d", S + n_new, B, "decode"))
+
+    fa_ops.launches = 0
+    prefill_ms, per_prefill = [], []
+    for _ in range(2):  # cold, then warm
+        l0 = fa_ops.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg0, cache = pre.fn(model, {"tokens": tokens})
+        tok = _greedy(lg0, cfg)
+        tok.cpu()  # the first token on the host: time to first token
+        prefill_ms.append(_ms_since(t0))
+        per_prefill.append(fa_ops.launches - l0)
+    cache = api.grow_cache(cache, slots)
+    fp_logits, fp_tokens, tick_ms, cache = _decode_run(
+        dec, model, cache, tok, cfg, n_new)
+    l0 = fa_ops.launches
+    lgq, cache_q = pre_q.fn(model, {"tokens": tokens})
+    int8_launches = fa_ops.launches - l0
+    cache_q = api.grow_cache(cache_q, slots)
+    q_logits, _, q_tick_ms, cache_q = _decode_run(
+        dec, model, cache_q, tok, cfg, n_new, feed=fp_tokens)
+    torch.cuda.synchronize()
+    launches = fa_ops.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    prefill_err, decode_err, lg_ref = lockstep_vs_plain(
+        cfg, model, api, InputShape, tokens, n_new)
+    cut = dataclasses.replace(cfg, num_layers=2, name=cfg.name + "-l2")
+    cut_model = init_params(cut, 3)
+    cut_prefill_err, cut_decode_err, _ = lockstep_vs_plain(
+        cut, cut_model, api, InputShape, tokens, n_new)
+    del cut_model
+    int8_gap = max((a - b).abs().max().item()
+                   for a, b in zip(q_logits, fp_logits))
+    agree = float(np.mean([bool(torch.equal(_greedy(a, cfg), b))
+                           for a, b in zip(q_logits, fp_tokens)]))
+    toks = torch.cat([tok] + fp_tokens, 1)
+    kv_bytes = {name: sum(c[k].numel() * c[k].element_size()
+                          for k in ("k", "v", "k_scale", "v_scale", "pos")
+                          if k in c)
+                for name, c in (("fp", cache), ("int8", cache_q))}
+    checks = {
+        f"{cfg.num_layers} flash launches per prefill":
+            per_prefill == [cfg.num_layers] * 2
+            and int8_launches == cfg.num_layers,
+        "no flash launch in decode": launches == 3 * cfg.num_layers,
+        "2 layers: prefill and decode logits kernel vs plain within "
+        "LOGITS_ATOL": max(cut_prefill_err, cut_decode_err) <= LOGITS_ATOL,
+        "40 layers: prefill and decode logits kernel vs plain within "
+        "LOCKSTEP_FULL_ATOL": max(prefill_err, decode_err)
+            <= LOCKSTEP_FULL_ATOL,
+        "finite logits": all(bool(torch.isfinite(t).all())
+                             for t in fp_logits + q_logits),
+        "one decode input shape per cache kind": dec.fn.shape_count == 2,
+        "tokens in the vocab": bool(((toks >= 0)
+                                     & (toks < cfg.vocab_size)).all()),
+        "index advanced": int(cache["index"]) == S + n_new
+            and int(cache_q["index"]) == S + n_new,
+        "int8 cache": cache_q["k"].dtype == torch.int8,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"dense_lockstep failed: {failed}; launches "
+                           f"{per_prefill} {int8_launches} {launches}, "
+                           f"errors {cut_prefill_err} {cut_decode_err} "
+                           f"(2 layers), {prefill_err} {decode_err}")
+    ticks = sorted(tick_ms)
+    out = {
+        "config": cfg.name, "layers": cfg.num_layers, "batch": B,
+        "prompt_len": S, "new_tokens": n_new, "cache_slots": slots,
+        "dtype": cfg.dtype, "init_params_s": init_s,
+        "prefill_ms_cold_warm": prefill_ms, "ttft_ms": prefill_ms[-1],
+        "decode_tokens_per_s": B * n_new / (sum(tick_ms) / 1e3),
+        "tick_ms_p50": ticks[len(ticks) // 2], "tick_ms_max": ticks[-1],
+        "peak_mem_gb": peak, "init_params_peak_mem_gb": init_peak,
+        "attention_launches": launches,
+        "launches_per_prefill": per_prefill,
+        "prefill_max_abs_err": prefill_err,
+        "decode_max_abs_err": decode_err, "atol": LOCKSTEP_FULL_ATOL,
+        "l2_prefill_max_abs_err": cut_prefill_err,
+        "l2_decode_max_abs_err": cut_decode_err, "l2_atol": LOGITS_ATOL,
+        "logits_std": lg_ref.std().item(),
+        "logits_max_abs": lg_ref.abs().max().item(),
+        "int8": {"launches": int8_launches, "max_logit_gap": int8_gap,
+                 "greedy_agreement": agree,
+                 "decode_tokens_per_s": B * n_new / (sum(q_tick_ms) / 1e3),
+                 "kv_bytes": kv_bytes["int8"], "fp_kv_bytes": kv_bytes["fp"]},
+        "tokens_row0": toks[0, :8].tolist()}
+    del model, cache, cache_q
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train(ModelConfig, init_params, api, InputShape, LM, adam,
+             DynamicsTokenStream, fa_ops) -> dict:
+    """``api.build(..., "train")`` on ``train_world_model.py``'s ``wm-100m``
+    in bf16 at its ``lr``: 50 steps over ``DynamicsTokenStream``'s first 4
+    batches (made before the run), where the loss must halve. The step
+    trains through the plain attention by design (the kernel is
+    forward-only, as the reference's has no backward), so the kernel is
+    launched no time."""
+    cfg = ModelConfig(**LM_TRAIN_CFG)
+    B, S, steps = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["steps"]
+    stream = DynamicsTokenStream(cfg.vocab_size, S, B, seed=0)
+    bundle = api.build(cfg, InputShape("t", S, B, "train"))
+    batches = [stream.batch_at(i) for i in range(LM_TRAIN["batches"])]
+    model = init_params(cfg, 0)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt_state = adam(cfg.lr).init(LM.trainable(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launches = 0
+    losses, gnorms, step_ms = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        model, opt_state, m = bundle.fn(model, opt_state,
+                                        batches[i % len(batches)])
+        losses.append(float(m["loss"]))
+        step_ms.append(_ms_since(t0))
+        gnorms.append(float(m["gnorm"]))
+    launches = fa_ops.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, opt_state
+    checks = {
+        "loss halved": losses[-1] < 0.5 * losses[0],
+        "finite": bool(np.isfinite(losses + gnorms).all()),
+        "no flash launch (plain attention by design)": launches == 0,
+        "one train input shape": bundle.fn.shape_count == 1,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"lm_train failed: {failed}; losses "
+                           f"{losses[0]} -> {losses[-1]}, launches "
+                           f"{launches}")
+    warm = sorted(step_ms[1:])
+    out = {"config": cfg.name, "params_m": n_params / 1e6,
+           "dtype": cfg.dtype, "batch": B, "seq": S, "steps": steps,
+           "lr": cfg.lr, "microbatches": bundle.num_microbatches,
+           "batches_cycled": LM_TRAIN["batches"],
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses_every_10": losses[::10], "gnorm_last": gnorms[-1],
+           "step_ms_first": step_ms[0], "step_ms_p50": warm[len(warm) // 2],
+           "tokens_per_s": B * S / (warm[len(warm) // 2] / 1e3),
+           "peak_mem_gb": peak, "attention_launches": launches}
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def wm_mbrl(LM, fa_ops) -> dict:
+    """The transformer world model in the paper's algorithm: pendulum with
+    ``WMConfig`` defaults (head dim 32), 6 trajectories, the normaliser
+    fitted, 12 ``train_epoch``s (the predict MSE must fall below 0.3x),
+    then 3 ME-TRPO ``improve`` steps at ``AlgoConfig`` defaults through
+    ``predict_fn``: one kernel prefill per imagined step and layer."""
+    from repro_torch.envs import make_env
+    from repro_torch.mbrl import policy as PI
+    from repro_torch.mbrl.algos import AlgoConfig, make_algo
+    from repro_torch.mbrl.wm_dynamics import WMConfig, WorldModelDynamics
+    env = make_env("pendulum")
+    wm = WorldModelDynamics(WMConfig(env.obs_dim, env.act_dim), 0)
+    nl = wm.mcfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pol = PI.init_policy(PI.PolicyConfig(env.obs_dim, env.act_dim, hidden=8),
+                         gen)
+    trajs = [env.rollout(PI.sample_action, pol, generator=gen)
+             for _ in range(WM_TRAJS)]
+    obs, act, nobs = (torch.cat([t[k] for t in trajs])
+                      for k in ("obs", "act", "next_obs"))
+    wm.update_normalizer(torch.cat([obs, nobs]))
+
+    def mse():
+        pred = wm.predict(obs[:64], act[:64])
+        return float(((pred - nobs[:64]) ** 2).mean())
+
+    fa_ops.launches = 0
+    before = mse()
+    t0 = time.perf_counter()
+    for _ in range(WM_EPOCHS):
+        loss = wm.train_epoch(obs, act, nobs, generator=gen)
+    train_s = time.perf_counter() - t0
+    train_launches = fa_ops.launches - nl
+    after = mse()
+    acfg = AlgoConfig()
+    algo = make_algo(acfg, PI.PolicyConfig(env.obs_dim, env.act_dim),
+                     env.reward, env.reset_batch,
+                     predict_fn=wm.predict_fn())
+    state = algo.init(gen)
+    improve_ms, returns, per_improve = [], [], []
+    for _ in range(WM_IMPROVE_STEPS):
+        l0 = fa_ops.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, info = algo.improve(state, wm.params, generator=gen)
+        returns.append(float(info["imagined_return"]))
+        improve_ms.append(_ms_since(t0))
+        per_improve.append(fa_ops.launches - l0)
+    launches = fa_ops.launches
+
+    # the comparison: the kernel prefill of imagined prompts vs the plain
+    prompt = torch.cat([wm.tok_obs(obs[:64], wm.norm, 0),
+                        wm.tok_act(act[:64])], 1)
+    lg_k, _ = LM.make_prefill(wm.mcfg)(wm.params, {"tokens": prompt})
+    lg_r, _ = LM.make_prefill(wm.mcfg, attn_impl="ref")(
+        wm.params, {"tokens": prompt})
+    err = (lg_k - lg_r).abs().max().item()
+    checks = {
+        f"MSE below {WM_MSE_RATIO}x its start": after < WM_MSE_RATIO * before,
+        "no flash launch in training (plain attention)": train_launches == 0,
+        f"{acfg.imagine_horizon * nl} flash launches per improve":
+            per_improve == [acfg.imagine_horizon * nl] * WM_IMPROVE_STEPS,
+        "finite imagined returns": bool(np.isfinite(returns).all()),
+        "steps": int(state["steps"]) == WM_IMPROVE_STEPS,
+        "prefill logits kernel vs plain within LOGITS_ATOL":
+            err <= LOGITS_ATOL,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"wm_mbrl failed: {failed}; mse {before} -> "
+                           f"{after}, launches {per_improve}, err {err}")
+    return {"env": "pendulum", "head_dim": wm.mcfg.hd,
+            "d_model": wm.mcfg.d_model, "layers": nl, "bins": wm.cfg.bins,
+            "rows": int(obs.shape[0]), "epochs": WM_EPOCHS,
+            "train_s": train_s, "token_loss": loss, "mse_before": before,
+            "mse_after": after, "mse_ratio": after / before,
+            "imagine_batch": acfg.imagine_batch,
+            "imagine_horizon": acfg.imagine_horizon,
+            "improve_ms": improve_ms, "imagined_returns": returns,
+            "attention_launches": launches,
+            "launches_per_improve": per_improve,
+            "prefill_max_abs_err": err, "atol": LOGITS_ATOL}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -2998,8 +3367,10 @@ def main() -> int:
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.models import api
     from repro_torch.models import lm as LM
-    from repro_torch.models.config import InputShape
+    from repro_torch.data.synthetic import DynamicsTokenStream
+    from repro_torch.models.config import InputShape, ModelConfig
     from repro_torch.models.lm import init_params
+    from repro_torch.optim.optimizers import adam
     from repro_torch.serve import WorldModelServer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3134,7 +3505,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lockstep = dense_lockstep(CONFIG, init_params, api, InputShape, fa_ops)
+    emit({"phase": "dense_lockstep", **lockstep})
+    trained = lm_train(ModelConfig, init_params, api, InputShape, LM, adam,
+                       DynamicsTokenStream, fa_ops)
+    emit({"phase": "lm_train", **trained})
+    wm = wm_mbrl(LM, fa_ops)
+    emit({"phase": "wm_mbrl", **wm})
+
     main_row = rows[MAIN_PATH_CASE]
+    wm_row = rows[WM_PATH_CASE]
     eq, rg = (gmm_rows["equal"][GMM_EQUAL_MAIN],
               gmm_rows["ragged"][GMM_RAGGED_MAIN])
     im = imag_rows[IMAG_MAIN]
@@ -3144,11 +3524,17 @@ def main() -> int:
         "source": str(fa_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/flash_attention/pallas.py:71",
         "launches": served["attention_launches"],
+        "launches_dense_lockstep": lockstep["attention_launches"],
+        "launches_lm_train": trained["attention_launches"],
+        "launches_wm_mbrl": wm["attention_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "tflops": main_row["tflops"],
-        "shape": MAIN_PATH_CASE}, {
+        "shape": MAIN_PATH_CASE,
+        "wm_path": {k: wm_row[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")} | {"case": WM_PATH_CASE}}, {
         "name": "gmm_equal", "route": "cuda",
         "source": str(gmm_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/gmm/pallas.py:47",

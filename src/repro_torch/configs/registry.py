@@ -7,6 +7,7 @@ lists what is still to port.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.models.config import ModelConfig
@@ -42,6 +43,19 @@ ALIASES.update({
 })
 
 
+# long_500k applicability of the ported archs: "native" (sub-quadratic as
+# published) or "window" (run with the documented sliding-window variant);
+# the reference's table also names the archs still to port
+LONG_CONTEXT = {
+    "mamba2_2_7b": "native",
+    "glm4_9b": "window",
+    "qwen3_14b": "window",
+    "granite_3_8b": "window",
+}
+
+LONG_WINDOW = 4096
+
+
 def normalize(arch_id: str) -> str:
     key = arch_id.replace("_", "-").lower()
     if key in ALIASES:
@@ -51,11 +65,21 @@ def normalize(arch_id: str) -> str:
     raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ALIASES)}")
 
 
-def get_config(arch_id: str, *, reduced: bool = False) -> ModelConfig:
+def get_config(arch_id: str, *, reduced: bool = False,
+               long_context: bool = False) -> ModelConfig:
+    """The config of ``arch_id``. ``long_context`` gives the full-size
+    sliding-window variant (``attn_window=LONG_WINDOW``, name ``+swa``)
+    of the archs that run long contexts that way, as the reference does:
+    the dense family's way into the ring cache (kind "W")."""
     name = normalize(arch_id)
     if name not in PORTED:
         raise NotImplementedError(
             f"arch {arch_id!r} is not ported to repro_torch yet (ported: "
             f"{sorted(PORTED)}); see ROADMAP.md, open items")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
-    return mod.REDUCED if reduced else mod.CONFIG
+    cfg = mod.REDUCED if reduced else mod.CONFIG
+    if long_context and not reduced:
+        if LONG_CONTEXT[name] == "window" and not cfg.attn_window:
+            cfg = dataclasses.replace(cfg, attn_window=LONG_WINDOW,
+                                      name=cfg.name + "+swa")
+    return cfg

@@ -54,6 +54,17 @@
 // * The dynamic shared-memory limit (85 KB at D = 128) is raised once per
 //   kernel and device, not on every launch.
 //
+// Head dims. Both routes are compiled for D = 32, 64 and 128. A head dim d
+// that is a multiple of 8 below 128 runs in the next instance up: its rows
+// are read with the row stride of d, the columns d..D-1 of the Q, K and V
+// tiles are filled with zeros (they add 0 to every score, and give output
+// columns that are never stored), so the result is the one at d exactly;
+// only the scale, d^-1/2, comes from the caller. Each instance is built
+// twice: exact (d == D, the row strides and the tail tests compile to
+// constants) and padded. The world model's heads
+// (d = 32; 24 in its examples) take this path; the Pallas kernel takes any
+// d, since its block is (block, d).
+//
 // f32 inputs keep the first design of this file (the port's LM never runs
 // attention in f32): f32 FMAs on the CUDA cores, 32-row kv tiles loaded
 // synchronously, thread t owning q rows 4*(t/8) .. 4*(t/8)+3 for both
@@ -81,16 +92,17 @@ constexpr size_t smem_bytes() {
                           BLOCK_K * D + BLOCK_Q * PSTRIDE);
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(THREADS)
     flash_attention_fwd_kernel(const float* __restrict__ q,
                                const float* __restrict__ k,
                                const float* __restrict__ v,
                                float* __restrict__ o,
-                               int Sq, int Sk, int Hq, int Hkv, float scale,
-                               int causal, int window) {
+                               int Sq, int Sk, int Hq, int Hkv, int d_pad,
+                               float scale, int causal, int window) {
   constexpr int QS = D + 1;       // Q and K row stride: conflict-free
   constexpr int DC = D / 8;       // output columns per thread
+  const int d = PAD ? d_pad : D;  // the head dim; a constant when exact
   extern __shared__ float smem[];
   float* Qs = smem;                  // BLOCK_Q x QS
   float* Ks = Qs + BLOCK_Q * QS;     // BLOCK_K x QS
@@ -106,16 +118,16 @@ __global__ void __launch_bounds__(THREADS)
   const int hk = h / (Hq / Hkv);
   const int offset = Sk - Sq;
 
-  const size_t q_row = (size_t)Hq * D;
-  const size_t k_row = (size_t)Hkv * D;
-  const float* qb = q + (size_t)b * Sq * q_row + (size_t)h * D;
-  const float* kb = k + (size_t)b * Sk * k_row + (size_t)hk * D;
-  const float* vb = v + (size_t)b * Sk * k_row + (size_t)hk * D;
-  float* ob = o + (size_t)b * Sq * q_row + (size_t)h * D;
+  const size_t q_row = (size_t)Hq * d;
+  const size_t k_row = (size_t)Hkv * d;
+  const float* qb = q + (size_t)b * Sq * q_row + (size_t)h * d;
+  const float* kb = k + (size_t)b * Sk * k_row + (size_t)hk * d;
+  const float* vb = v + (size_t)b * Sk * k_row + (size_t)hk * d;
+  float* ob = o + (size_t)b * Sq * q_row + (size_t)h * d;
 
   for (int i = tid; i < BLOCK_Q * D; i += THREADS) {
     const int r = i / D, c = i % D, s = q0 + r;
-    Qs[r * QS + c] = s < Sq ? qb[(size_t)s * q_row + c] : 0.f;
+    Qs[r * QS + c] = s < Sq && c < d ? qb[(size_t)s * q_row + c] : 0.f;
   }
 
   float m[ROWS], l[ROWS], acc[ROWS][DC];
@@ -138,7 +150,7 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();  // Qs written / last tile's Ks, Vs, Ps all read
     for (int i = tid; i < BLOCK_K * D; i += THREADS) {
       const int r = i / D, c = i % D, s = kt + r;
-      const bool ok = s < Sk;
+      const bool ok = s < Sk && c < d;
       Ks[r * QS + c] = ok ? kb[(size_t)s * k_row + c] : 0.f;
       Vs[r * D + c] = ok ? vb[(size_t)s * k_row + c] : 0.f;
     }
@@ -150,12 +162,12 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < KCOLS; ++j) sc[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int e = 0; e < D; ++e) {
       float qv[ROWS], kv[KCOLS];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) qv[i] = Qs[(rg * ROWS + i) * QS + d];
+      for (int i = 0; i < ROWS; ++i) qv[i] = Qs[(rg * ROWS + i) * QS + e];
 #pragma unroll
-      for (int j = 0; j < KCOLS; ++j) kv[j] = Ks[(cl + 8 * j) * QS + d];
+      for (int j = 0; j < KCOLS; ++j) kv[j] = Ks[(cl + 8 * j) * QS + e];
 #pragma unroll
       for (int i = 0; i < ROWS; ++i)
 #pragma unroll
@@ -220,7 +232,7 @@ __global__ void __launch_bounds__(THREADS)
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      ob[(size_t)s * q_row + cl + 8 * c] = acc[i][c] / den;
+      if (cl + 8 * c < d) ob[(size_t)s * q_row + cl + 8 * c] = acc[i][c] / den;
   }
 }
 
@@ -246,11 +258,12 @@ cudaError_t allow_smem(SmemOnce& once, Kernel kernel, size_t bytes) {
   return err;
 }
 
-template <int D>
+template <int D, bool PAD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int Sq, int Sk, int Hq, int Hkv, float scale,
-                       int causal, int window, cudaStream_t stream) {
-  auto kernel = flash_attention_fwd_kernel<D>;
+                       int B, int Sq, int Sk, int Hq, int Hkv, int d,
+                       float scale, int causal, int window,
+                       cudaStream_t stream) {
+  auto kernel = flash_attention_fwd_kernel<D, PAD>;
   const size_t smem = smem_bytes<D>();
   static SmemOnce once;
   cudaError_t err = allow_smem(once, kernel, smem);
@@ -259,7 +272,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, Hq, Hkv,
-      scale, causal, window);
+      d, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -335,18 +348,20 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-// Copy rows r0.. (zeros past rmax) of a (rows, D) bf16 slab with row
-// stride `stride` elements into a BQ x (D + 8) shared tile.
+// Copy rows r0.. (zeros past rmax) of a (rows, d) bf16 slab with row
+// stride `stride` elements into a BQ x (D + 8) shared tile; columns d..D-1
+// (the head-dim tail of a padded instance) are zero-filled.
 template <int D>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
-                                          size_t stride, int r0, int rmax) {
+                                          size_t stride, int r0, int rmax,
+                                          int d) {
   constexpr int CH = D / 8;  // 16-byte chunks per row
 #pragma unroll
   for (int i = 0; i < BQ * CH / THREADS; ++i) {
     const int c = threadIdx.x + i * THREADS;
     const int r = c / CH, col = (c % CH) * 8;
-    const bool ok = r0 + r < rmax;
+    const bool ok = r0 + r < rmax && col < d;
     cp_async16(dst + r * (D + 8) + col,
                ok ? src + (size_t)(r0 + r) * stride + col : src, ok);
   }
@@ -355,14 +370,15 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
 // grid (Hq, B, ceil(Sq / BQ)), the q tile slowest and last tiles first, so
 // that the tiles that visit the most kv tiles under causal masking start
 // first on every head. scale_log2 = scale * log2(e): scores live in base 2.
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                 const __nv_bfloat16* __restrict__ k,
                                 const __nv_bfloat16* __restrict__ v,
                                 __nv_bfloat16* __restrict__ o, int Sq, int Sk,
-                                int Hq, int Hkv, float scale_log2, int causal,
-                                int window) {
+                                int Hq, int Hkv, int d_pad, float scale_log2,
+                                int causal, int window) {
+  const int d = PAD ? d_pad : D;  // the head dim; a constant when exact
   constexpr int ST = D + 8;          // shared row stride: ldmatrix conflict-free
   constexpr int TILE = BQ * ST;
   constexpr int KS = D / 16;         // k-steps of Q K^T
@@ -379,11 +395,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (Hq / Hkv);
   const int offset = Sk - Sq;
-  const size_t q_row = (size_t)Hq * D, k_row = (size_t)Hkv * D;
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_row + (size_t)h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * Sk * k_row + (size_t)hk * D;
-  const __nv_bfloat16* vb = v + (size_t)b * Sk * k_row + (size_t)hk * D;
-  __nv_bfloat16* ob = o + (size_t)b * Sq * q_row + (size_t)h * D;
+  const size_t q_row = (size_t)Hq * d, k_row = (size_t)Hkv * d;
+  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_row + (size_t)h * d;
+  const __nv_bfloat16* kb = k + (size_t)b * Sk * k_row + (size_t)hk * d;
+  const __nv_bfloat16* vb = v + (size_t)b * Sk * k_row + (size_t)hk * d;
+  __nv_bfloat16* ob = o + (size_t)b * Sq * q_row + (size_t)h * d;
 
   // kv range that some real row of this q tile can see
   const int q_first = q0 + offset;
@@ -392,10 +408,10 @@ __global__ void __launch_bounds__(THREADS, 2)
   int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
   k_begin -= k_begin % BKV;
 
-  load_rows<D>(Qs, qb, q_row, q0, Sq);
+  load_rows<D>(Qs, qb, q_row, q0, Sq, d);
   if (k_begin < k_end) {
-    load_rows<D>(Ks, kb, k_row, k_begin, Sk);
-    load_rows<D>(Vs, vb, k_row, k_begin, Sk);
+    load_rows<D>(Ks, kb, k_row, k_begin, Sk, d);
+    load_rows<D>(Vs, vb, k_row, k_begin, Sk, d);
   }
   cp_async_commit();
 
@@ -410,8 +426,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   int stage = 0;
   for (int kt = k_begin; kt < k_end; kt += BKV, stage ^= 1) {
     if (kt + BKV < k_end) {
-      load_rows<D>(Ks + (stage ^ 1) * TILE, kb, k_row, kt + BKV, Sk);
-      load_rows<D>(Vs + (stage ^ 1) * TILE, vb, k_row, kt + BKV, Sk);
+      load_rows<D>(Ks + (stage ^ 1) * TILE, kb, k_row, kt + BKV, Sk, d);
+      load_rows<D>(Vs + (stage ^ 1) * TILE, vb, k_row, kt + BKV, Sk, d);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -520,53 +536,66 @@ __global__ void __launch_bounds__(THREADS, 2)
     __nv_bfloat16* orow = ob + (size_t)row * q_row + tig * 2;
 #pragma unroll
     for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<unsigned*>(orow + j * 8) =
-          pack_bf16(acc[j][2 * i] / den, acc[j][2 * i + 1] / den);
+      if (j * 8 < d)  // d is a multiple of 8: the tail tiles are not stored
+        *reinterpret_cast<unsigned*>(orow + j * 8) =
+            pack_bf16(acc[j][2 * i] / den, acc[j][2 * i + 1] / den);
   }
 }
 
 }  // namespace tc
 
-template <int D>
+template <int D, bool PAD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int Sq, int Sk, int Hq, int Hkv, float scale,
-                        int causal, int window, cudaStream_t stream) {
+                        int B, int Sq, int Sk, int Hq, int Hkv, int d,
+                        float scale, int causal, int window,
+                        cudaStream_t stream) {
   constexpr size_t smem = tc::smem_bytes<D>();
   static SmemOnce once;
   cudaError_t err =
-      allow_smem(once, tc::flash_attention_bf16_kernel<D>, smem);
+      allow_smem(once, tc::flash_attention_bf16_kernel<D, PAD>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(Hq, B, (Sq + tc::BQ - 1) / tc::BQ);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  tc::flash_attention_bf16_kernel<D><<<grid, tc::THREADS, smem, stream>>>(
+  tc::flash_attention_bf16_kernel<D, PAD>
+      <<<grid, tc::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Sq, Sk, Hq, Hkv, scale * tc::LOG2E, causal, window);
+      Sq, Sk, Hq, Hkv, d, scale * tc::LOG2E, causal, window);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16. D is the head dim: any multiple of 8
+// up to 128 runs in the next instance up (32, 64 or 128), its tail loaded
+// as zeros and never stored. Returns a cudaError_t (0 = success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype, int B,
                                    int Sq, int Sk, int Hq, int Hkv, int D,
                                    float scale, int causal, int window,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal,
-                          window, s);
-  if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal,
-                           window, s);
-  if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal,
-                           window, s);
-  if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal,
-                            window, s);
+  if (D < 8 || D > 128 || D % 8) return (int)cudaErrorInvalidValue;
+  const int inst = D <= 32 ? 32 : D <= 64 ? 64 : 128;
+#define FA_LAUNCH(KIND, I)                                                   \
+  if (inst == I && D == I)                                                   \
+    return launch_##KIND<I, false>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, scale, \
+                                   causal, window, s);                       \
+  if (inst == I)                                                             \
+    return launch_##KIND<I, true>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, scale,  \
+                                  causal, window, s);
+  if (dtype == 0) {
+    FA_LAUNCH(f32, 32)
+    FA_LAUNCH(f32, 64)
+    FA_LAUNCH(f32, 128)
+  }
+  if (dtype == 1) {
+    FA_LAUNCH(bf16, 32)
+    FA_LAUNCH(bf16, 64)
+    FA_LAUNCH(bf16, 128)
+  }
+#undef FA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,7 +16,9 @@ import torch
 from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (64, 128)
+# head dims the kernel is compiled for; any multiple of 8 up to the largest
+# runs in the next one up, its tail loaded as zeros (csrc header, "Head dims")
+INSTANCE_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -30,6 +32,16 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def instance_dim(D: int) -> int:
+    """The compiled head dim that runs head dim ``D``; raises ValueError for
+    a ``D`` the kernel does not take (not a multiple of 8, or above 128)."""
+    if D % 8 or not 8 <= D <= INSTANCE_DIMS[-1]:
+        raise ValueError(f"flash_attention kernel supports head dims that "
+                         f"are multiples of 8 up to {INSTANCE_DIMS[-1]}, "
+                         f"got {D}")
+    return next(i for i in INSTANCE_DIMS if D <= i)
 
 
 def _check(q, k, v) -> None:
@@ -61,9 +73,7 @@ def _check(q, k, v) -> None:
     if Hq % k.shape[2]:
         raise ValueError(f"q heads {Hq} not a multiple of kv heads "
                          f"{k.shape[2]}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel supports head dims "
-                         f"{HEAD_DIMS}, got {D}")
+    instance_dim(D)
     if Sq > k.shape[1]:
         raise ValueError(f"flash_attention kernel needs Sq <= Sk (got "
                          f"{Sq} > {k.shape[1]}): a query row left without "

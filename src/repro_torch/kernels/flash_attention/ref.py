@@ -7,6 +7,10 @@ causal masking aligned at the ends (query ``i`` sits at position
 ``i + Sk - Sq``), an optional sliding window, softmax in f32 and the output
 in ``q.dtype``. ``naive`` materialises the whole score matrix;
 ``chunked`` runs the online softmax over kv blocks, as the kernel does.
+``masked_decode`` is the single-token decode attention of the lock-step and
+slot caches; ``decode_attention_partial`` and ``combine_partials`` are the
+reference's decode over a slice of a KV cache and the logsumexp merge of
+such slices. They have no kernel there or here.
 """
 from __future__ import annotations
 
@@ -90,3 +94,52 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
         outs.append(torch.einsum("bhgqd->bqhgd", o))
     out = torch.stack(outs, 1).reshape(B, nq * block_q, Hq, D)
     return out[:, :Sq].to(q.dtype)
+
+
+def masked_decode(q, k_cache, v_cache, valid, *, scale: float | None = None):
+    """Single-token decode attention under a mask of the cache's slots.
+
+    q: (B, Hq, D); k_cache/v_cache: (B, S, Hkv, D); valid: (S,) bool shared
+    by the batch (lock-step decode) or (B, S) per row (slot decode).
+    Returns ``(o, lse)``: ``o`` (B, Hq, D) normalised over the valid slots
+    and ``lse`` (B, Hq) their log-sum-exp, both f32."""
+    B, S, Hkv, D = k_cache.shape
+    Hq = q.shape[1]
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float()) * scale
+    mask = valid[None, None, None] if valid.dim() == 1 \
+        else valid[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    d = p.sum(-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    lse = m + torch.log(torch.clamp(d, min=1e-30))
+    o = o / torch.clamp(d[..., None], min=1e-30)
+    return o.reshape(B, Hq, D), lse.reshape(B, Hq)
+
+
+def decode_attention_partial(q, k_cache, v_cache, length, *, start: int = 0,
+                             scale: float | None = None):
+    """Single-token decode attention over a (possibly sharded) KV cache
+    slice. The reference has no Pallas kernel for it, so it is plain torch
+    on every device.
+
+    q: (B, Hq, D); k_cache/v_cache: (B, S_loc, Hkv, D); ``length`` is the
+    number of valid GLOBAL positions; ``start`` is this slice's global
+    offset. Returns :func:`masked_decode`'s ``(o, lse)`` over this slice,
+    for a logsumexp combination across slices."""
+    pos = start + torch.arange(k_cache.shape[1], device=q.device)
+    return masked_decode(q, k_cache, v_cache, pos < length, scale=scale)
+
+
+def combine_partials(outs, lses):
+    """Merge per-slice ``(o, lse)`` partials by their softmax weights.
+
+    outs: (N, B, Hq, D); lses: (N, B, Hq) -> (B, Hq, D)."""
+    m = lses.amax(0)
+    w = torch.exp(lses - m)  # (N, B, Hq)
+    w = w / torch.clamp(w.sum(0), min=1e-30)
+    return torch.einsum("nbh,nbhd->bhd", w, outs)

@@ -1,12 +1,18 @@
-"""Launcher: the port of ``repro/launch/train.py``, ``--task mbrl``.
+"""Launcher: the port of ``repro/launch/train.py``.
 
-Asynchronous model-based RL on a PyTorch env with ME-TRPO / ME-PPO /
-MB-MPO, async (under the event engine, on host threads with ``--mode
-threads``, or as supervised OS processes with ``--mode procs``) or one of
-the synchronous engines::
+``--task mbrl``: asynchronous model-based RL on a PyTorch env with ME-TRPO
+/ ME-PPO / MB-MPO, async (under the event engine, on host threads with
+``--mode threads``, or as supervised OS processes with ``--mode procs``)
+or one of the synchronous engines::
 
     python -m repro_torch.launch.train --task mbrl --env pendulum \\
         --algo me-trpo --engine async --trajs 60
+
+``--task lm``: the LM trainer, ``api.build(..., "train")`` on random
+tokens for ``--steps`` steps, for the dense and ssm families::
+
+    python -m repro_torch.launch.train --task lm --arch glm4-9b --reduced \\
+        --steps 10
 
 It runs on the card; ``--device cpu`` runs it on the CPU. The flags are
 the reference's, plus ``--device``; with ``--mode procs`` the ``--out``
@@ -21,8 +27,8 @@ collectors::
         --transport tcp --bind 0.0.0.0:7447 --trajs 60
     python -m repro_torch.launch.train --connect trainer-host:7447
 
-What is not ported exits with a message that names ROADMAP.md: ``--mesh``
-and ``--task lm``.
+What is not ported exits with a message that names ROADMAP.md: ``--mesh``,
+and ``--task lm`` on the moe, hybrid, encdec and vlm archs.
 """
 from __future__ import annotations
 
@@ -33,9 +39,8 @@ import time
 
 def _not_ported(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to repro_torch yet: only the "
-                      "event, threads and procs engines of --task mbrl "
-                      "without a role mesh are (ROADMAP.md §1, open "
-                      "items)")
+                      "event, threads and procs engines without a role "
+                      "mesh are (ROADMAP.md §1, open items)")
 
 
 def run_mbrl(args):
@@ -142,10 +147,46 @@ def run_join(args):
     return n
 
 
+def run_lm(args):
+    """``--task lm``: ``--steps`` train steps of ``--arch`` on random tokens
+    (labels equal to tokens, as in the reference). Returns the losses."""
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models import lm as LM
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim.optimizers import adam
+
+    try:
+        cfg = get_config(args.arch, reduced=args.reduced)
+        LM._block_kind(cfg)
+    except NotImplementedError as err:
+        raise SystemExit(f"--task lm --arch {args.arch}: {err}") from None
+    dev = resolve_device(args.device)
+    shape = InputShape("cli", args.seq, args.batch, "train")
+    bundle = api.build(cfg, shape, device=dev)
+    params = LM.init_params(cfg, args.seed, device=dev)
+    opt_state = adam(cfg.lr).init(LM.trainable(params))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    losses = []
+    for step in range(args.steps):
+        tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
+                               generator=gen, device=dev,
+                               dtype=torch.int32)
+        params, opt_state, m = bundle.fn(
+            params, opt_state, {"tokens": tokens, "labels": tokens})
+        losses.append(float(m["loss"]))
+        if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
+            print(f"step {step:4d} loss {losses[-1]:.4f} "
+                  f"gnorm {float(m['gnorm']):.3f}", flush=True)
+    return losses
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train",
                                  description=__doc__)
-    # --task lm (the reference's LM trainer and its flags) is not ported
     ap.add_argument("--task", choices=["mbrl", "lm"], default="mbrl")
     # mbrl
     ap.add_argument("--env", default="pendulum")
@@ -209,14 +250,20 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: the CUDA card; "
                          "'cpu' runs on the CPU)")
+    # lm
+    ap.add_argument("--arch", default="glm4-9b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.task != "mbrl":
-        raise _not_ported(f"--task {args.task}")
+    if args.task == "lm":
+        return run_lm(args)
     if args.connect:
         return run_join(args)
     return run_mbrl(args)

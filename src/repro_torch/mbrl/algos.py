@@ -27,7 +27,7 @@ start states, as the reference's ``init_state_fn(key, n)`` does.
 
 The reference's ``_MeshMixin`` (``configure_mesh``: imagination batches
 sharded over a role sub-mesh of a TPU pod) is not ported: the port runs on
-one card (ROADMAP item 18).
+one card (ROADMAP.md §1, the mesh tools, item 9).
 """
 from __future__ import annotations
 

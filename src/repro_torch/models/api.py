@@ -1,4 +1,4 @@
-"""Step entry points: the serving subset of ``repro/models/api.py``.
+"""Step entry points: the one-card subset of ``repro/models/api.py``.
 
 The reference wraps each step in ``shard_map`` + ``jit`` and counts traces.
 PyTorch runs eagerly, so a bundle's ``fn`` is a plain callable on a device
@@ -6,13 +6,16 @@ that counts the distinct input shapes it has seen (``shape_count``). That
 keeps the serving invariants assertable: one decode shape forever and at
 most one prefill shape per prompt bucket.
 
-``build`` makes the lock-step prefill and decode steps (the ssm family's
-serving path); ``build_serve_prefill`` / ``build_serve_decode`` make the
-slot-pool steps of the continuous-batching serve tier (the dense family).
+``build`` makes the lock-step prefill and decode steps (the dense and ssm
+families, fp or int8 KV caches) and the microbatched train step;
+``build_serve_prefill`` / ``build_serve_decode`` make the slot-pool steps
+of the continuous-batching serve tier (the dense family);
+``as_predict_fn`` pins a world model to the MBRL predict contract.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.models import lm as LM
 from repro_torch.models.config import InputShape, ModelConfig
+from repro_torch.optim.optimizers import adam
 from repro_torch.utils.shape_stats import ShapeCounted
 
 
@@ -30,6 +34,21 @@ class StepBundle:
     cfg: ModelConfig
     shape: InputShape
     device: torch.device
+    num_microbatches: int = 1
+
+
+def pick_microbatches(cfg: ModelConfig, shape: InputShape,
+                      target_tokens: int = 8192) -> int:
+    """Microbatches of a train step: ``shape.microbatch`` if set, else the
+    largest divisor of the batch that keeps about ``target_tokens`` a
+    microbatch (the reference's rule at dp=1)."""
+    if shape.kind != "train":
+        return 1
+    if shape.microbatch:
+        return shape.microbatch
+    b = max(shape.global_batch, 1)
+    want = max(1, (b * shape.seq_len) // target_tokens)
+    return max(c for c in range(1, b + 1) if b % c == 0 and c <= want)
 
 
 def grow_cache(cache, to_len: int):
@@ -61,30 +80,66 @@ def grow_cache(cache, to_len: int):
 
 
 def build(cfg: ModelConfig, shape: InputShape, *, device=None,
+          kv_int8: bool = False, attn_impl: str | None = None,
           ssd_impl: str | None = None) -> StepBundle:
-    """The lock-step step of ``shape.kind``:
+    """The step of ``shape.kind``:
 
     * ``"prefill"``: ``bundle.fn(params, batch) -> (logits, cache)``, batch
-      ``{"tokens": (B, S)}``; ``ssd_impl="ref"`` runs the plain scan instead
-      of the kernel (for the on-card comparison only);
+      ``{"tokens": (B, S)}``, the cache laid out for ``shape.seq_len``
+      tokens (int8 when ``kv_int8``, dense family). ``attn_impl="ref"`` /
+      ``ssd_impl="ref"`` run the plain attention / scan instead of the
+      kernels (for the on-card comparison only);
     * ``"decode"``: ``bundle.fn(params, cache, token) -> (logits, cache')``
-      for one token ``(B, 1)``; the cache's states are updated in place,
-      where the reference donates the cache to its jit.
-
-    ``"train"`` is not ported: the scan kernel has no backward yet."""
+      for one token ``(B, 1)``; the cache is updated in place, where the
+      reference donates it to its jit;
+    * ``"train"``: ``bundle.fn(params, opt_state, batch) -> (params,
+      opt_state, {"loss", "gnorm"})`` with Adam at ``cfg.lr`` (``opt_state
+      = adam(cfg.lr).init(LM.trainable(params))``) over
+      ``pick_microbatches`` microbatches, through the plain attention and
+      scan (``LM.make_train_step``)."""
     dev = resolve_device(device)
+    nm = 1
+    quant = kv_int8 and cfg.family in ("dense", "vlm", "moe")
     if shape.kind == "prefill":
-        fn = LM.make_prefill(cfg, ssd_impl=ssd_impl)
+        fn = LM.make_prefill(cfg, shape.seq_len, kv_int8=quant,
+                             attn_impl=attn_impl, ssd_impl=ssd_impl)
     elif shape.kind == "decode":
         fn = LM.make_decode(cfg)
     elif shape.kind == "train":
-        raise NotImplementedError(
-            "the train step is not ported to repro_torch yet: it needs "
-            "backward kernels (ssd, flash attention); see ROADMAP.md, open "
-            "items")
+        nm = pick_microbatches(cfg, shape)
+        fn = LM.make_train_step(cfg, adam(cfg.lr), nm)
     else:
         raise ValueError(f"unknown step kind {shape.kind!r}")
-    return StepBundle(shape.kind, ShapeCounted(fn), cfg, shape, dev)
+    return StepBundle(shape.kind, ShapeCounted(fn), cfg, shape, dev, nm)
+
+
+# --------------------------------------------------------------------------
+# world-model plumbing: the predict_fn contract
+
+
+def as_predict_fn(fn):
+    """Pin ``fn`` to the world-model predict contract:
+    ``predict(params, obs, act, generator) -> next_obs`` with
+    ``next_obs.shape == obs.shape``.
+
+    This is what ``mbrl.algos.make_algo(predict_fn=...)`` swaps in for the
+    ensemble fast path. The wrapper checks the shape contract on every
+    call (the reference checks it at trace time), so a world model that
+    returns another state layout fails at swap-in, not deep in a rollout,
+    and tags the callable (``is_predict_fn``) so engines can validate a
+    handed-in model."""
+
+    @functools.wraps(fn)
+    def predict(params, obs, act, generator):
+        out = fn(params, obs, act, generator)
+        if out.shape != obs.shape:
+            raise ValueError(
+                f"predict_fn contract: next_obs shape {tuple(out.shape)} "
+                f"!= obs shape {tuple(obs.shape)}")
+        return out
+
+    predict.is_predict_fn = True
+    return predict
 
 
 def build_serve_prefill(cfg: ModelConfig, global_batch: int, seq_len: int,

@@ -1,4 +1,4 @@
-"""Transformer building blocks: the serving and loss subset of
+"""Transformer building blocks: the one-device subset of
 ``repro/models/layers.py``.
 
 Same numerics as the reference on one device (its tensor-parallel
@@ -7,8 +7,10 @@ in f32; bf16 products accumulate in f32 and round once to bf16, as
 ``torch.matmul`` does on the card (the reference leaves these products to
 XLA, so they are plain ``torch.matmul`` here too). Full-sequence attention
 goes through ``kernels.flash_attention.ops``, which launches the Hopper
-kernel on CUDA tensors. Single-token decode attention is plain torch, as in
-the reference, which computes it outside any Pallas kernel.
+kernel on CUDA tensors. Single-token decode attention (``attn_decode`` for
+the lock-step cache, ``attn_decode_slots`` for the serve tier's slot pool)
+is plain torch, as in the reference, which computes it outside any Pallas
+kernel; the int8 KV cache quantises per (slot, head) vector.
 
 ``init_*`` return dicts of tensors shaped like the reference's pytrees;
 ``p`` arguments are any mapping with those keys (a dict, or the
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.flash_attention import ref as attn_ref
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
@@ -62,10 +65,14 @@ def matmul(x, w):
 
 def dot_f32(x, w):
     """(B, d) @ (d, n) -> f32, accumulated in f32: the reference's
-    ``jnp.dot(..., preferred_element_type=f32)``."""
+    ``jnp.dot(..., preferred_element_type=f32)``. ``torch.mm``'s
+    ``out_dtype`` has no derivative, so a product that needs a gradient
+    widens its bf16 operands (exactly) and multiplies in f32."""
     if x.dtype == torch.float32:
         return x @ w
-    if x.is_cuda:
+    needs_grad = torch.is_grad_enabled() and (x.requires_grad
+                                              or w.requires_grad)
+    if x.is_cuda and not needs_grad:
         return torch.mm(x, w, out_dtype=torch.float32)
     return x.float() @ w.float()
 
@@ -122,20 +129,99 @@ def attn_forward(cfg: ModelConfig, p, x, positions, *,
     return out
 
 
-def _masked_decode(q, k_cache, v_cache, valid):
-    """q: (B, Hq, hd); caches (B, S, KV, hd); valid: (B, S) bool per row.
-    Returns the softmax-normalised output (B, Hq, hd) in f32."""
-    B, S, Hkv, D = k_cache.shape
-    Hq = q.shape[1]
-    G = Hq // Hkv
-    qf = q.float().reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float()) * (D ** -0.5)
-    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
-    pexp = torch.exp(s - s.amax(-1, keepdim=True))
-    den = pexp.sum(-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", pexp, v_cache.float())
-    o = o / torch.clamp(den[..., None], min=1e-30)
-    return o.reshape(B, Hq, D)
+def decode_mode(cfg: ModelConfig, global_batch: int, seq_len: int):
+    """The KV-cache layout, as the reference picks it statically: a dict of
+    ``{kind, s_cache}``.
+
+      kind "W": sliding-window ring cache of ``min(window, seq_len + 1)``
+                slots;
+      kind "A": ``seq_len + 1`` slots, kv heads whole on the card.
+
+    The reference's other layouts shard the cache over a mesh: kind "B"
+    puts the sequence over tensor-parallel devices when they outnumber the
+    kv heads, and kind "A" puts it over data-parallel devices when they do
+    not divide the batch. On one card tp = dp = 1, which divides every kv
+    head count and every batch, so neither arises. ``global_batch`` is kept
+    for the reference's signature."""
+    del global_batch
+    window = cfg.attn_window
+    if window and window > 0:
+        return dict(kind="W", s_cache=min(window, seq_len + 1))
+    return dict(kind="A", s_cache=seq_len + 1)
+
+
+# --------------------------------------------------------------------------
+# int8 KV quantisation: absmax per (slot, head) vector
+
+
+def kv_quantize(x):
+    """x: (..., hd) -> (int8 values, f32 scale[..., 1])."""
+    xf = x.float()
+    amax = xf.abs().amax(-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def kv_dequantize(q, scale, dtype):
+    return (q.float() * scale).to(dtype)
+
+
+def _write_slot(cache, slot, val):
+    """``cache[:, slot] = val[:, 0]`` in place, for a 0-d device ``slot``
+    (no host sync); the reference's ``dynamic_update_slice`` on axis 1."""
+    cache.index_copy_(1, slot.reshape(1), val.to(cache.dtype))
+
+
+def attn_decode(cfg: ModelConfig, p, x, k_cache, v_cache, cache_pos, index,
+                mode, k_scale=None, v_scale=None):
+    """Lock-step single-token decode under ``mode`` (kind "A" or "W").
+
+    x: (B, 1, d); caches (B, S, KV, hd); cache_pos (S,) position per cache
+    slot (-1 empty), shared by the batch; index: 0-d number of tokens
+    already in the sequence. Writes the new k/v (quantised, with their
+    scales, when ``k_scale`` is given) and position into slot ``index``
+    (``index % S`` in the ring) in place, where the reference returns new
+    arrays from a donated cache, and returns the block's output."""
+    quant = k_scale is not None
+    B = x.shape[0]
+    h = rmsnorm(x, p["ln"])
+    hd = cfg.hd
+    q = matmul(h, p["wq"]).reshape(B, 1, -1, hd)
+    k = matmul(h, p["wk"]).reshape(B, 1, -1, hd)
+    v = matmul(h, p["wv"]).reshape(B, 1, -1, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    q = rope(q, index[None], cfg.rope_theta)
+    k = rope(k, index[None], cfg.rope_theta)
+
+    S = k_cache.shape[1]
+    window = cfg.attn_window
+    slot = index % S if mode["kind"] == "W" else index
+    # an update past the end lands on the last slot, as a clamped
+    # dynamic_update_slice does
+    slot = torch.clamp(slot, max=S - 1).long()
+    if quant:
+        kq, ks = kv_quantize(k)
+        vq, vs = kv_quantize(v)
+        for c, val in ((k_cache, kq), (v_cache, vq), (k_scale, ks),
+                       (v_scale, vs)):
+            _write_slot(c, slot, val)
+        k_att = kv_dequantize(k_cache, k_scale, x.dtype)
+        v_att = kv_dequantize(v_cache, v_scale, x.dtype)
+    else:
+        _write_slot(k_cache, slot, k)
+        _write_slot(v_cache, slot, v)
+        k_att, v_att = k_cache, v_cache
+    cache_pos.index_copy_(0, slot.reshape(1),
+                          index.reshape(1).to(cache_pos.dtype))
+
+    valid = (cache_pos >= 0) & (cache_pos <= index)
+    if window and window > 0:
+        valid &= cache_pos > (index - window)
+    o, _ = attn_ref.masked_decode(q[:, 0], k_att, v_att, valid)
+    return x + matmul(o.reshape(B, 1, -1).to(x.dtype), p["wo"])
 
 
 def attn_decode_slots(cfg: ModelConfig, p, x, k_cache, v_cache, cache_pos,
@@ -173,7 +259,7 @@ def attn_decode_slots(cfg: ModelConfig, p, x, k_cache, v_cache, cache_pos,
                                       cache_pos[row, tgt])
 
     valid = (cache_pos >= 0) & (cache_pos <= index[:, None])  # (B, S)
-    o = _masked_decode(q[:, 0], k_cache, v_cache, valid)
+    o, _ = attn_ref.masked_decode(q[:, 0], k_cache, v_cache, valid)
     o = matmul(o.reshape(B, 1, -1).to(x.dtype), p["wo"])
     return x + o, k_cache, v_cache, cache_pos
 

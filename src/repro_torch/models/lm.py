@@ -19,12 +19,18 @@ Two cache layouts:
 * the serve tier's slot pool (dense): ``k``/``v`` ``(L, n_slots, S, KV,
   hd)``, ``pos`` ``(n_slots, S)`` (-1 empty) and ``index`` ``(n_slots,)``;
 * the lock-step cache of ``init_cache`` / ``make_prefill`` /
-  ``make_decode`` (ssm): ``ssm`` ``(L, B, H, P, N)`` f32, ``conv_x`` ``(L,
-  B, W-1, d_inner)``, ``conv_bc`` ``(L, B, W-1, 2GN)`` and one scalar
-  ``index`` for the whole batch, which starts and stops together.
+  ``make_decode``, with one scalar ``index`` for the whole batch, which
+  starts and stops together. Dense: ``k``/``v`` ``(L, B, S, KV, hd)``
+  (int8 with f32 ``k_scale``/``v_scale`` ``(L, B, S, KV, 1)`` when
+  quantised) and ``pos`` ``(S,)``, in the layout ``layers.decode_mode``
+  picks (kind "A", or the sliding window's ring, kind "W"). Ssm: ``ssm``
+  ``(L, B, H, P, N)`` f32, ``conv_x`` ``(L, B, W-1, d_inner)`` and
+  ``conv_bc`` ``(L, B, W-1, 2GN)``.
 
 Decode writes into a cache in place, where the reference donates it to a
-jit. The dense lock-step layout is not ported yet.
+jit. ``make_train_step`` is the reference's microbatched step on one card;
+it trains by autograd of the plain attention and scan, the reference's own
+gradient route (its Pallas kernels have no ``custom_vjp``).
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.optimizers import Optimizer
 
 
 class Params(nn.Module):
@@ -161,65 +168,226 @@ def embed_inputs(cfg: ModelConfig, params: LM, batch):
     return x, torch.arange(x.shape[1], device=x.device)
 
 
-def loss_forward(cfg: ModelConfig, params: LM, batch):
+def loss_forward(cfg: ModelConfig, params: LM, batch, *,
+                 attn_impl: str | None = None, ssd_impl: str | None = None):
     """The stateless forward and its loss: ``(sum_loss, count, aux)`` as the
-    reference returns them (``aux`` is 0 for these families). Forward only
-    through the kernels: the scan kernel has no backward yet, and raises if
-    asked for one."""
+    reference returns them (``aux`` is 0 for these families).
+    ``attn_impl`` / ``ssd_impl`` pick the routes as in ``stack_forward``.
+    The kernel routes are forward-only and raise if asked for a gradient;
+    with ``"ref"`` the loss is differentiable, as ``make_train_step`` uses
+    it."""
     x, positions = embed_inputs(cfg, params, batch)
-    h, _ = stack_forward(cfg, params, x, positions)
+    h, _ = stack_forward(cfg, params, x, positions, attn_impl=attn_impl,
+                         ssd_impl=ssd_impl)
     s, c = L.lm_loss(cfg, params["embed"], h, batch["labels"])
     return s, c, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 # --------------------------------------------------------------------------
-# lock-step cache, prefill and decode (the ssm family)
+# training step (microbatched gradient accumulation + optimizer)
+
+AUX_COEF = 0.01
 
 
-def _lockstep(cfg: ModelConfig) -> None:
-    """The lock-step programs are ported for the pure-ssm family only."""
-    if _block_kind(cfg) != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the lock-step prefill/decode of the {cfg.family} "
-            "family is not ported yet (its serving path is the slot-pool "
-            "serve tier); see ROADMAP.md, open items")
+def trainable(params: LM) -> Dict[str, torch.Tensor]:
+    """The leaves the train step differentiates and updates, by name (the
+    optimizer's tree): ``opt.init(trainable(params))``."""
+    return dict(params.named_parameters())
 
 
-def init_cache(cfg: ModelConfig, global_batch: int, *, device=None):
-    """Empty lock-step cache (zeros, ``index`` 0): the state before the
-    first token. An ssm cache has no sequence capacity, so unlike the
-    reference's it takes no sequence length."""
-    _lockstep(cfg)
+def value_and_grad(params: LM, loss_fn):
+    """``(loss, grads)`` of ``loss_fn() -> scalar`` with respect to
+    ``trainable(params)``, grads by name in each leaf's dtype (zeros for a
+    leaf the loss does not reach). The leaves are frozen; they are marked
+    for the gradient for this call only."""
+    leaves = trainable(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    try:
+        loss = loss_fn()
+        g = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    finally:
+        for t in leaves.values():
+            t.requires_grad_(False)
+    grads = {n: torch.zeros_like(t) if gi is None else gi
+             for (n, t), gi in zip(leaves.items(), g)}
+    return loss.detach(), grads
+
+
+def apply_to(params: LM, updates) -> LM:
+    """Add ``updates`` (by name) to the LM's leaves in place, each result
+    cast to its leaf's dtype: the reference's ``apply_updates``."""
+    with torch.no_grad():
+        for n, t in trainable(params).items():
+            t.copy_((t + updates[n]).to(t.dtype))
+    return params
+
+
+def make_train_step(cfg: ModelConfig, opt: Optimizer,
+                    num_microbatches: int = 1, *, loss_fwd=None):
+    """The reference's microbatched gradient-accumulation step on one card:
+    ``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "gnorm"})``.
+
+    ``loss_fwd(params, batch) -> (sum_loss, count, aux)`` defaults to the
+    decoder-LM loss through the PLAIN attention and scan
+    (``attn_impl="ref"``, ``ssd_impl="ref"``): the reference's Pallas
+    kernels have no ``custom_vjp``, so its gradient is autodiff of its plain
+    versions, and the port's kernel routes are forward-only. The batch is
+    split into ``num_microbatches`` row blocks whose gradients accumulate in
+    f32; the global norm is clipped at ``cfg.max_grad_norm``. The LM's
+    leaves are frozen; the step marks them for the gradient itself and
+    writes the update into them in place (the reference returns new
+    arrays), so ``params`` comes back as the same module. ``opt_state`` is
+    ``opt.init(trainable(params))``."""
+    if loss_fwd is None:
+        _block_kind(cfg)    # the moe and hybrid families raise here
+
+        def loss_fwd(p, b):
+            return loss_forward(cfg, p, b, attn_impl="ref", ssd_impl="ref")
+
+    def train_step(params: LM, opt_state, batch):
+        nm = num_microbatches
+        rows = batch["labels"].shape[0]
+        if rows % nm:
+            raise ValueError(f"batch of {rows} rows does not split into "
+                             f"{nm} microbatches")
+        mb = rows // nm
+        count = (batch["labels"] >= 0).sum()
+        denom = torch.clamp(count, min=1).to(torch.float32)
+        grads = {n: torch.zeros_like(t, dtype=torch.float32)
+                 for n, t in trainable(params).items()}
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=denom.device)
+        for i in range(nm):
+            b = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            part = {}
+
+            def loss_fn():
+                s, _, aux = loss_fwd(params, b)
+                part["s"] = s.detach()
+                return s / denom + AUX_COEF * aux / nm
+            _, g = value_and_grad(params, loss_fn)
+            for n, gi in g.items():
+                grads[n] += gi.to(torch.float32)
+            loss_sum = loss_sum + part["s"]
+        total = sum(torch.sum(g * g) for g in grads.values())
+        gnorm = torch.sqrt(total + 1e-12)
+        scale = torch.clamp(cfg.max_grad_norm / (gnorm + 1e-9), max=1.0)
+        grads = {n: g * scale for n, g in grads.items()}
+        with torch.no_grad():
+            updates, opt_state = opt.update(grads, opt_state,
+                                            trainable(params))
+        apply_to(params, updates)
+        return params, opt_state, {"loss": loss_sum / denom, "gnorm": gnorm}
+
+    return train_step
+
+
+# --------------------------------------------------------------------------
+# lock-step cache, prefill and decode (the dense and ssm families)
+
+
+def init_cache(cfg: ModelConfig, global_batch: int, seq_len: int = 0, *,
+               prefilled: bool = False, kv_int8: bool = False, device=None):
+    """Empty lock-step cache (zeros, positions -1): the state before the
+    first token, or, with ``prefilled``, a placeholder at ``index =
+    seq_len``. A dense cache holds ``decode_mode``'s ``s_cache`` slots for
+    ``seq_len`` tokens (int8 with f32 scales when ``kv_int8``); an ssm cache
+    has no sequence capacity and ignores ``seq_len`` and ``kv_int8``."""
+    kind = _block_kind(cfg)
     dev = resolve_device(device)
     B, nl = global_batch, cfg.num_layers
     dt = L.dtype_of(cfg)
+    cache: Dict[str, Any] = {"index": torch.tensor(
+        seq_len if prefilled else 0, dtype=torch.int32, device=dev)}
+    if kind == "dense":
+        s_c = L.decode_mode(cfg, B, seq_len)["s_cache"]
+        shape = (nl, B, s_c, cfg.num_kv_heads, cfg.hd)
+        kdt = torch.int8 if kv_int8 else dt
+        cache["k"] = torch.zeros(shape, dtype=kdt, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=kdt, device=dev)
+        if kv_int8:
+            sshape = shape[:-1] + (1,)
+            cache["k_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                           device=dev)
+            cache["v_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                           device=dev)
+        cache["pos"] = torch.full((s_c,), -1, dtype=torch.int32, device=dev)
+        return cache
     H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     W, gn2 = cfg.ssm_conv - 1, 2 * cfg.ssm_groups * cfg.ssm_state
-    return {
-        "index": torch.zeros((), dtype=torch.int32, device=dev),
-        "ssm": torch.zeros((nl, B, H, Pd, N), dtype=torch.float32,
-                           device=dev),
-        "conv_x": torch.zeros((nl, B, W, cfg.d_inner), dtype=dt, device=dev),
-        "conv_bc": torch.zeros((nl, B, W, gn2), dtype=dt, device=dev)}
+    cache["ssm"] = torch.zeros((nl, B, H, Pd, N), dtype=torch.float32,
+                               device=dev)
+    cache["conv_x"] = torch.zeros((nl, B, W, cfg.d_inner), dtype=dt,
+                                  device=dev)
+    cache["conv_bc"] = torch.zeros((nl, B, W, gn2), dtype=dt, device=dev)
+    return cache
 
 
-def make_prefill(cfg: ModelConfig, *, ssd_impl: str | None = None):
+def _pack_kv(k, v, S_: int, mode):
+    """Prefill k/v ``(L, B, S_, KV, hd)`` -> the cache layout of ``mode``
+    and its ``pos`` array. Kind "W" keeps the last ``s_cache`` positions,
+    each in ring slot ``pos % s_cache``; kind "A" pads with empty slots."""
+    s_c = mode["s_cache"]
+    dev = k.device
+    if mode["kind"] == "W":
+        keepn = min(s_c, S_)
+        pos = torch.arange(S_ - keepn, S_, device=dev)
+        slots = pos % s_c
+
+        def ring(a):
+            out = a.new_zeros(a.shape[:2] + (s_c,) + a.shape[3:])
+            out[:, :, slots] = a[:, :, S_ - keepn:]
+            return out
+        posarr = torch.full((s_c,), -1, dtype=torch.int32, device=dev)
+        posarr[slots] = pos.to(torch.int32)
+        return ring(k), ring(v), posarr
+    pad = s_c - S_
+    if pad < 0:
+        raise ValueError(f"a prompt of {S_} tokens does not fit a cache of "
+                         f"{s_c} slots")
+    posarr = torch.cat([torch.arange(S_, dtype=torch.int32, device=dev),
+                        torch.full((pad,), -1, dtype=torch.int32,
+                                   device=dev)])
+    return (F.pad(k, (0, 0, 0, 0, 0, pad)), F.pad(v, (0, 0, 0, 0, 0, pad)),
+            posarr)
+
+
+def make_prefill(cfg: ModelConfig, seq_len: int | None = None, *,
+                 kv_int8: bool = False, attn_impl: str | None = None,
+                 ssd_impl: str | None = None):
     """Lock-step prefill: ``prefill(params, batch) -> (logits, cache)``,
     logits of the last token ``(B, V_pad)`` f32 and the cache of
-    ``init_cache``'s layout at ``index = S``. Shapes come from the batch
-    (the reference's ``global_batch`` / ``seq_len`` pick sharded cache
-    layouts, which one card does not have)."""
-    _lockstep(cfg)
+    ``init_cache``'s layout at ``index = S``. A dense cache is laid out for
+    ``seq_len`` tokens (the prompt's length when None), quantised to int8
+    when ``kv_int8``. ``attn_impl`` / ``ssd_impl`` pick the routes (None:
+    the kernels on CUDA tensors; ``"ref"`` for the on-card comparison)."""
+    kind = _block_kind(cfg)
 
     def prefill(params: LM, batch):
         x, positions = embed_inputs(cfg, params, batch)
-        h, (st, tx, tbc) = stack_forward(cfg, params, x, positions,
-                                         collect_cache=True,
-                                         ssd_impl=ssd_impl)
+        B, S_ = x.shape[:2]
+        h, ys = stack_forward(cfg, params, x, positions, collect_cache=True,
+                              attn_impl=attn_impl, ssd_impl=ssd_impl)
         logits = L.lm_logits_last(cfg, params["embed"], h[:, -1])
-        cache = {"index": torch.tensor(x.shape[1], dtype=torch.int32,
-                                       device=x.device),
-                 "ssm": st, "conv_x": tx, "conv_bc": tbc}
+        cache: Dict[str, Any] = {"index": torch.tensor(
+            S_, dtype=torch.int32, device=x.device)}
+        if kind == "dense":
+            mode = L.decode_mode(cfg, B, S_ if seq_len is None else seq_len)
+            k, v = ys
+            if kv_int8:
+                (kq, ks), (vq, vs) = L.kv_quantize(k), L.kv_quantize(v)
+                cache["k"], cache["v"], cache["pos"] = _pack_kv(kq, vq, S_,
+                                                                mode)
+                cache["k_scale"], cache["v_scale"], _ = _pack_kv(ks, vs, S_,
+                                                                 mode)
+            else:
+                cache["k"], cache["v"], cache["pos"] = _pack_kv(k, v, S_,
+                                                                mode)
+        else:
+            cache["ssm"], cache["conv_x"], cache["conv_bc"] = ys
         return logits, cache
 
     return prefill
@@ -227,22 +395,36 @@ def make_prefill(cfg: ModelConfig, *, ssd_impl: str | None = None):
 
 def make_decode(cfg: ModelConfig):
     """Lock-step decode: ``decode(params, cache, token) -> (logits,
-    cache')`` for ONE new token ``(B, 1)`` of every row. The states are
-    written into ``cache``'s tensors in place; ``cache'`` holds them and the
-    advanced index."""
-    _lockstep(cfg)
+    cache')`` for ONE new token ``(B, 1)`` of every row. The states (dense:
+    k/v, their int8 scales and ``pos``) are written into ``cache``'s tensors
+    in place; ``cache'`` holds them and the advanced index. A dense cache's
+    layout is read off the cache itself."""
+    kind = _block_kind(cfg)
 
     def decode(params: LM, cache, token):
+        index = cache["index"]
         h = L.embed_tokens(cfg, params["embed"], token)       # (B, 1, d)
-        for i, lp in enumerate(params["layers"]):
-            h, st, tx, tbc = S.mamba_decode(
-                cfg, lp["mamba"], h, cache["ssm"][i], cache["conv_x"][i],
-                cache["conv_bc"][i])
-            cache["ssm"][i].copy_(st)
-            cache["conv_x"][i].copy_(tx)
-            cache["conv_bc"][i].copy_(tbc)
+        if kind == "dense":
+            k, v = cache["k"], cache["v"]
+            mode = L.decode_mode(cfg, k.shape[1], k.shape[2] - 1)
+            quant = "k_scale" in cache
+            for i, lp in enumerate(params["layers"]):
+                scales = (dict(k_scale=cache["k_scale"][i],
+                               v_scale=cache["v_scale"][i]) if quant
+                          else {})
+                h = L.attn_decode(cfg, lp["attn"], h, k[i], v[i],
+                                  cache["pos"], index, mode, **scales)
+                h = L.mlp_forward(cfg, lp["mlp"], h)
+        else:
+            for i, lp in enumerate(params["layers"]):
+                h, st, tx, tbc = S.mamba_decode(
+                    cfg, lp["mamba"], h, cache["ssm"][i],
+                    cache["conv_x"][i], cache["conv_bc"][i])
+                cache["ssm"][i].copy_(st)
+                cache["conv_x"][i].copy_(tx)
+                cache["conv_bc"][i].copy_(tbc)
         logits = L.lm_logits_last(cfg, params["embed"], h[:, 0])
-        return logits, dict(cache, index=cache["index"] + 1)
+        return logits, dict(cache, index=index + 1)
 
     return decode
 

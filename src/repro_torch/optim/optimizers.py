@@ -37,6 +37,25 @@ def constant_schedule(lr: float):
                                    device=step.device)
 
 
+def cosine_schedule(lr: float, decay_steps: int, final_frac: float = 0.0):
+    def f(step):
+        t = torch.clamp(step / max(decay_steps, 1), 0.0, 1.0)
+        cos = 0.5 * (1.0 + torch.cos(torch.pi * t))
+        return lr * (final_frac + (1 - final_frac) * cos)
+    return f
+
+
+def warmup_cosine(lr: float, warmup_steps: int, decay_steps: int,
+                  final_frac: float = 0.0):
+    cos = cosine_schedule(lr, max(decay_steps - warmup_steps, 1), final_frac)
+
+    def f(step):
+        warm = lr * step / max(warmup_steps, 1)
+        return torch.where(step < warmup_steps, warm,
+                           cos(step - warmup_steps))
+    return f
+
+
 def _as_schedule(lr):
     return lr if callable(lr) else constant_schedule(lr)
 
@@ -86,6 +105,10 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return updates, AdamState(step, mu, nu)
 
     return Optimizer(init, update)
+
+
+def adamw(lr, weight_decay: float = 0.01, **kw) -> Optimizer:
+    return adam(lr, weight_decay=weight_decay, **kw)
 
 
 class SGDState(NamedTuple):

@@ -6,6 +6,9 @@ arrays (``np.asarray`` on the JAX side), and hand it here. Two layouts:
 * the LM (``state_from_jax``): the stacked ``layers`` axis is unstacked
   into the port's per-layer ``ModuleList``, so ``layers/attn/wq[i]``
   becomes ``layers.i.attn.wq``;
+* the transformer world model (``world_model_from_jax``): a
+  ``WorldModelDynamics``' LM parameters, normaliser and Adam state, the
+  moments keyed by the port's parameter names;
 * the MBRL trees (``tree_from_jax`` / ``tree_to_numpy``): the dynamics
   ensemble ``{"members": {"w": [(K,a,b) ...], "b": [...]}, "norm": {...}}``
   and the policy ``{"w": [...], "b": [...], "log_std": ...}`` keep their
@@ -22,6 +25,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.models import lm as LM
+from repro_torch.optim.optimizers import AdamState
 from repro_torch.utils.tree import tree_map
 
 
@@ -70,3 +75,19 @@ def tree_from_jax(tree, device="cpu"):
 def tree_to_numpy(tree):
     """A tree of tensors -> the same tree of numpy arrays on the host."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def world_model_from_jax(wm, params, norm, opt_state, device="cpu"):
+    """Carry a reference ``WorldModelDynamics``' state, given as numpy
+    trees (its ``params``, ``norm`` and ``opt_state``, an
+    ``AdamState(step, mu, nu)`` over the params' tree), into the port's
+    ``wm`` in place, and return ``wm``."""
+    wm.params = LM.LM.from_state_dict(wm.mcfg, state_from_jax(params, device))
+    wm.norm = {k: to_tensor(v, device) for k, v in norm.items()}
+    step, mu, nu = opt_state
+    names = list(LM.trainable(wm.params))
+    mu, nu = state_from_jax(mu, device), state_from_jax(nu, device)
+    wm.opt_state = AdamState(to_tensor(step, device),
+                             {n: mu[n] for n in names},
+                             {n: nu[n] for n in names})
+    return wm

@@ -26,6 +26,8 @@ CASES = [
     (1, 64, 192, 4, 1, 64, True, 64),     # prefix cache + sliding window
     (1, 64, 64, 2, 2, 32, False, 0),
     (1, 48, 48, 32, 2, 64, True, 0),      # GQA G=16, as GLM-4-9B
+    (4, 4, 4, 4, 4, 32, True, 0),         # WMConfig defaults' prefill
+    (3, 33, 40, 4, 4, 24, True, 16),      # the examples' head dim 24
 ]
 
 
@@ -141,6 +143,17 @@ def test_dispatch_refuses_what_it_cannot_run():
         fa_ops.attention(q, k, v, impl="pallas")
     with pytest.raises(ValueError, match="Sq <= Sk"):
         fa_ops.attention(q, k[:, :64], v[:, :64])
+
+
+def test_head_dims_run_in_the_next_compiled_instance():
+    """Any head dim that is a multiple of 8 up to 128 runs in the next
+    compiled instance up (its tail loaded as zeros); any other raises
+    before a launch, on every device."""
+    assert [fa_cuda.instance_dim(d) for d in (8, 24, 32, 40, 64, 72, 128)] \
+        == [32, 32, 32, 64, 64, 128, 128]
+    for d in (4, 36, 100, 136, 256):
+        with pytest.raises(ValueError, match="head dims"):
+            fa_cuda.instance_dim(d)
 
 
 def test_kernel_build_is_keyed_by_source_and_needs_nvcc(tmp_path,

@@ -52,8 +52,13 @@ SLICE8 = ["net/__init__.py", "net/frame.py", "net/control.py",
           "net/client.py", "net/join.py", "chaos/__init__.py",
           "chaos/faults.py", "chaos/monitor.py", "chaos/audit.py",
           "chaos/soak.py"]
+# the transformer world-model slice (it extends models/layers.py,
+# models/lm.py, models/api.py, kernels/flash_attention/, optim/,
+# configs/registry.py, testing/parity.py and launch/train.py)
+SLICE9 = ["data/__init__.py", "data/synthetic.py", "mbrl/wm_dynamics.py"]
 EXAMPLES = ["torch_quickstart.py", "torch_pr2_arm.py",
-            "torch_async_vs_sync.py"]
+            "torch_async_vs_sync.py", "torch_train_world_model.py",
+            "torch_wm_imagination.py", "torch_serve_world_model.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -73,7 +78,7 @@ def test_no_jax_or_reference_import(path):
 
 
 @pytest.mark.parametrize("module", SLICE2 + SLICE3 + SLICE4 + SLICE5
-                         + SLICE6 + SLICE8)
+                         + SLICE6 + SLICE8 + SLICE9)
 def test_slice_module_is_scanned(module):
     assert PORT / module in FILES
 

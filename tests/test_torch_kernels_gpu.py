@@ -36,6 +36,8 @@ ATTN_CASES = [
     (1, 64, 192, 4, 1, 64, True, 64),     # prefix cache + sliding window
     (1, 64, 64, 2, 2, 64, False, 0),
     (1, 100, 100, 32, 2, 128, True, 0),   # GQA G=16, S not a tile multiple
+    (4, 52, 52, 4, 4, 32, True, 0),       # head dim 32: the world model
+    (3, 33, 40, 4, 2, 24, True, 16),      # head dim 24, in the D = 32 build
 ]
 
 
@@ -114,9 +116,37 @@ def test_flash_attention_f32_route_matches_ref(card):
 
 @pytest.mark.gpu
 def test_flash_attention_kernel_refuses_unsupported_head_dim(card):
-    q = torch.zeros((1, 8, 2, 32), device=card)
-    with pytest.raises(ValueError, match="head dims"):
-        fa_ops.attention(q, q, q)
+    for d in (36, 136):
+        q = torch.zeros((1, 8, 2, d), device=card)
+        with pytest.raises(ValueError, match="head dims"):
+            fa_ops.attention(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 24, 40, 72, 120])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_padded_head_dim_writes_only_its_columns(card, d,
+                                                                 dtype):
+    """A head dim below its compiled instance: the output equals the plain
+    version's, and nothing is written past the last head's ``d`` columns
+    (the output is the head of a buffer whose tail keeps its fill)."""
+    rng = np.random.default_rng(d)
+    B, S, Hq, Hkv = 2, 70, 4, 2
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card, dtype) for shape in
+        ((B, S, Hq, d), (B, S, Hkv, d), (B, S, Hkv, d)))
+    n = q.numel()
+    buf = torch.full((n + 256,), 7.0, device=card, dtype=dtype)
+    assert fa_cuda._library().flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(),
+        0 if dtype == torch.float32 else 1, B, S, S, Hq, Hkv, d,
+        d ** -0.5, 1, 0, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    want = fa_ref.chunked_attention(q, k, v)
+    np.testing.assert_allclose(buf[:n].view(q.shape).float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=ATOL[dtype], rtol=ATOL[dtype])
+    assert bool((buf[n:] == 7.0).all())
 
 
 @pytest.mark.gpu

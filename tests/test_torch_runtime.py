@@ -392,9 +392,9 @@ def test_launcher_runs_each_engine_on_the_cpu(engine, tmp_path):
     (["--transport", "tcp"], ValueError,
      'transport="tcp" needs a real engine'),
     (["--mesh", "auto"], SystemExit, "ROADMAP.md"),
-    (["--task", "lm", "--connect", "127.0.0.1:5555"], SystemExit,
-     "ROADMAP.md"),
-    (["--task", "lm"], SystemExit, "ROADMAP.md"),
+    (["--task", "lm", "--arch", "mixtral-8x7b", "--connect",
+      "127.0.0.1:5555"], SystemExit, "ROADMAP.md"),
+    (["--task", "lm", "--arch", "zamba2-7b"], SystemExit, "ROADMAP.md"),
 ], ids=["threads", "procs", "tcp", "mesh", "connect", "lm"])
 def test_launcher_refuses_what_is_not_ported(flags, err, match):
     with pytest.raises(err, match=match):

@@ -266,19 +266,25 @@ def test_bf16_prefill_and_decode_match_jax(mesh1):
 
 
 def test_unported_branches_raise_with_a_roadmap_pointer(f32):
+    """The hybrid and moe families are not ported: their parameters, their
+    lock-step programs and their train step raise (the dense lock-step
+    programs and the train step of the dense and ssm families are ported,
+    and held against the reference in ``test_torch_lockstep.py`` and
+    ``test_torch_lm_train.py``)."""
     tcfg = f32[0][1]
     glm = get_config("glm4-9b", reduced=True)
     hybrid = dataclasses.replace(tcfg, family="hybrid", attn_every=2)
+    moe = dataclasses.replace(glm, family="moe", num_experts=4, top_k=2)
     for call in (
             lambda: get_config("zamba2_7b"),
             lambda: LM.init_params(hybrid, 0, device=CPU),
             lambda: LM.init_cache(hybrid, B, device=CPU),
-            lambda: LM.make_prefill(glm),
-            lambda: LM.make_decode(glm),
-            lambda: LM.init_cache(glm, B, device=CPU),
-            lambda: api.build(glm, InputShape("d", 8, B, "decode"),
+            lambda: LM.make_prefill(hybrid),
+            lambda: LM.make_decode(moe),
+            lambda: LM.init_cache(moe, B, 8, device=CPU),
+            lambda: api.build(hybrid, InputShape("d", 8, B, "decode"),
                               device=CPU),
-            lambda: api.build(tcfg, InputShape("t", 8, B, "train"),
+            lambda: api.build(moe, InputShape("t", 8, B, "train"),
                               device=CPU)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
