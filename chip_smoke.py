@@ -11,7 +11,8 @@ Phases, each printing one JSON line:
    ``cuobjdump -sass``; the phase fails if any of the four has none.
 2. ``kernel_check``: the flash-attention kernel against its plain PyTorch
    version on the card at the serving path's shapes, at the world
-   model's head dims (32, and 24 in the D = 32 build) and at edge shapes,
+   model's head dims (32, and 24 in the D = 32 build), at Zamba2-7B's
+   prefill (head dim 112 in the D = 128 build) and at edge shapes,
    with times of the kernel, the plain version and one PyTorch library
    call (SDPA), the kernel's achieved TFLOP/s, and the least time the card
    could take. Times are device time per call, from CUDA events around
@@ -35,8 +36,9 @@ Phases, each printing one JSON line:
    then first- and second-order gradients through its autograd Function
    against the plain version's autograd.
    ``ssd_check``: the SSD chunked-scan kernel ``ssd_chunked`` against its
-   plain version at the Mamba2-2.7B prefill shape (bf16, final state out),
-   at the stateless forward's, with a state in and out, and at edge
+   plain version at the Mamba2-2.7B and Zamba2-7B prefill shapes (bf16,
+   final state out), at the stateless forward's, with a state in and out,
+   and at edge
    shapes, with device times by CUDA-graph replay and the route's plan
    (tile, threads, shared bytes and registers a block, blocks an SM by
    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
@@ -194,12 +196,37 @@ Phases, each printing one JSON line:
    ``AlgoConfig`` defaults through ``predict_fn``: 100 flash launches a
    step (50 imagined steps × 2 layers), finite imagined returns, and the
    kernel prefill against the plain one within ``LOGITS_ATOL``.
-14. ``kernels``: one entry per kernel, as the port's records expect;
+14. The moe and hybrid LM families. ``moe_check``: ``gmm_ragged``'s bf16
+   route against the looped plain product (``ref.grouped_matmul_looped``)
+   at the dropless MoE's shapes (Moonlight-16B-A3B's decode and prefill,
+   Mixtral-8x7B's prefill, up and down products) and at the edge shapes,
+   within ``GMM_BF16_TOL`` (one bf16 ulp), with device times of the
+   kernel, the plain loop and ``torch._grouped_mm`` in bf16, and the
+   bound. ``moe_lockstep``: the
+   full 48-layer Moonlight-16B-A3B in bf16 in lock step (batch 8, 64-token
+   prompts, 16 decodes, fp and int8 caches): 48 flash and 144 bf16
+   ``gmm_ragged`` launches a prefill, 144 of the latter a decode; then at
+   a 2-layer cut, the kernels against the plain experts (bf16) and against
+   every plain route (f32) within ``LOGITS_ATOL``, and every plain route in
+   bf16 reported with the tokens rerouted at near-ties. ``moe_serve``:
+   ``serve``'s run on Moonlight at 16 of its 48 layers, 3 bf16
+   ``gmm_ragged`` launches a layer in every prefill and decode tick.
+   ``hybrid_lockstep``: the full 81-layer Zamba2-7B in bf16 in lock step
+   (batch 4, 256-token prompts, 16 decodes): 14 flash (head dim 112, the
+   128 build) and 81 ``ssd_chunked`` launches a prefill, none in decode;
+   at a 7-layer cut, kernels against the plain attention and scan in f32
+   within ``LOGITS_ATOL`` and in bf16 within ``HYBRID_BF16_ATOL``.
+15. ``kernels``: one entry per kernel, as the port's records expect;
    ``gmm_equal`` and ``imag_fused`` also give their ``event_run``,
    ``threads_paced``, ``procs_paced``, ``threads_tcp``, ``procs_tcp_join``
    and ``chaos_run`` launches; flash attention its ``dense_lockstep``,
-   ``lm_train`` and ``wm_mbrl`` launches and its times at the world
-   model's prefill shape (``wm_path``).
+   ``lm_train``, ``wm_mbrl``, ``moe_lockstep``, ``moe_serve`` and
+   ``hybrid_lockstep`` launches and its times at the world model's prefill
+   shape (``wm_path``) and Zamba2-7B's (``hybrid_path``); ``ssd_chunked``
+   its ``hybrid_lockstep`` launches and its times at Zamba2-7B's prefill
+   (``hybrid_path``);
+   ``gmm_ragged_bf16``, the bf16 route on its own, its ``moe_lockstep``
+   and ``moe_serve`` launches and the times of its other MoE shapes.
 
 Each kernel's launches are counted from 0 just before the phase that
 drives its path (``serve``, ``model_learn``, ``assigned_predict``,
@@ -208,7 +235,7 @@ drives its path (``serve``, ``model_learn``, ``assigned_predict``,
 ``threads_profile``, ``procs_paced``, ``procs_restart``, ``procs_fleet``,
 ``threads_tcp``, ``procs_tcp_join``, ``chaos_run``,
 ``ssm_serve``, ``ssm_forward``, ``dense_lockstep``, ``lm_train``,
-``wm_mbrl``) and
+``wm_mbrl``, ``moe_lockstep``, ``moe_serve``, ``hybrid_lockstep``) and
 read just after it (the procs phases' children count from 0 in their own
 processes and report in their heartbeats); comparison launches never
 count. The line before the
@@ -473,9 +500,14 @@ ATTN_CASES = [
     ("d32_s4096_f32", 1, 4096, 4096, 32, 2, 32, True, 0, torch.float32),
     ("d24_s4096", 1, 4096, 4096, 32, 2, 24, True, 0, torch.bfloat16),
     ("d24_s4096_f32", 1, 4096, 4096, 32, 2, 24, True, 0, torch.float32),
+    # Zamba2-7B's shared attention at hybrid_lockstep's prefill: head dim
+    # 112 in the D = 128 build, its tail zeroed
+    ("zamba2_prefill_s256", 4, 256, 256, 32, 32, 112, True, 0,
+     torch.bfloat16),
 ]
 MAIN_PATH_CASE = "prefill_s64"
 WM_PATH_CASE = "wm_prefill_b64_s4"
+HYBRID_ATTN_CASE = "zamba2_prefill_s256"
 
 
 def attention_bound_ms(q, k, v, mask) -> tuple:
@@ -630,9 +662,9 @@ def _unique_bytes(t) -> int:
     return n * t.element_size()
 
 
-def _scaled_err(got, want) -> tuple:
-    err = (got - want).abs().max().item()
-    return err, GMM_TOL * max(1.0, want.abs().max().item())
+def _scaled_err(got, want, tol: float = GMM_TOL) -> tuple:
+    err = (got.float() - want.float()).abs().max().item()
+    return err, tol * max(1.0, want.float().abs().max().item())
 
 
 def check_gmm(gmm_cuda, gmm_ref) -> dict:
@@ -737,9 +769,9 @@ def check_ragged_products(gmm_cuda, gmm_ref, lhs, rhs, dy, gs, offsets):
             "bound_by": bound_by}
 
 
-def grouped_mm_ms(library, want) -> tuple:
+def grouped_mm_ms(library, want, tol: float = GMM_TOL) -> tuple:
     """(ms, how, None) of one ``torch._grouped_mm`` call that computes
-    ``want`` within ``GMM_TOL`` (TF32 is off), or (None, None, why not):
+    ``want`` within ``tol`` (TF32 is off), or (None, None, why not):
     the card's torch may refuse f32, or strides that are not multiples of
     16 bytes. ``how`` is "graph" (device time by CUDA-graph replay, as the
     kernels') or, where the call cannot be captured because it reads the
@@ -754,9 +786,9 @@ def grouped_mm_ms(library, want) -> tuple:
         return None, None, f"{type(e).__name__}: {str(e)[:200]}"
     if got.shape != want.shape or got.dtype != want.dtype:
         return None, None, f"returned {tuple(got.shape)} {got.dtype}"
-    err, tol = _scaled_err(got, want)
-    if not err <= tol:
-        return None, None, f"max abs err {err} > {tol}"
+    err, bound = _scaled_err(got, want, tol)
+    if not err <= bound:
+        return None, None, f"max abs err {err} > {bound}"
     try:
         return device_ms(library), "graph", None
     except RuntimeError as e:
@@ -1380,7 +1412,7 @@ def ragged_grads(gmm_ops, predict, leaves, target, second_order: bool):
 def assigned_predictor(DYN, gmm_ops, params, idx, impl):
     """``predict(obs, act, weights)``: the kernel route is the user's
     ``DYN.predict_assigned``; ``impl="ref"`` the same function with the
-    plain ragged product (autograd through its gather)."""
+    plain ragged product (autograd through its loop over the groups)."""
     norm = params["norm"]
 
     def predict(obs, act, weights):
@@ -2745,8 +2777,13 @@ SSD_CASES = [
      False, True, 1.0),
     ("edge_l20_lt_chunk", 1, 20, 4, 16, 8, 1, 32, torch.float32,
      True, True, 0.1),
+    # Zamba2-7B's mamba layers at hybrid_lockstep's prefill (112 heads,
+    # P 64, N 64, final state out)
+    ("zamba2_prefill_b4_l256", 4, 256, 112, 64, 64, 1, 128, torch.bfloat16,
+     False, True, 1.0),
 ]
 SSD_MAIN = "prefill_b4_l1024"
+HYBRID_SSD_CASE = "zamba2_prefill_b4_l256"
 
 
 def ssd_inputs(gen, B, L, H, P, N, G, dtype, with_state, dt_scale):
@@ -3057,42 +3094,61 @@ def _decode_run(dec, model, cache, tok, cfg, n_new, feed=None):
     return logits_seq, tokens, tick_ms, cache
 
 
-def lockstep_vs_plain(cfg, model, api, InputShape, tokens, n_new):
-    """The comparison: the lock-step prefill through the kernel and
-    through the plain attention, and ``n_new`` decodes from each cache
-    fed the same greedy tokens. Returns the largest logit differences
-    (prefill, decode), the kernel prefill's logits and its greedy run."""
+def lockstep_vs_plain(cfg, model, api, InputShape, tokens, n_new,
+                      plain=None):
+    """The comparison: the lock-step prefill through the kernels and
+    through the plain routes ``plain`` names (``api.build``'s ``*_impl``;
+    the plain attention by default), and ``n_new`` decodes from each cache
+    fed the same greedy tokens (each decode on its own route of the moe
+    experts). Returns the largest logit differences (prefill, decode) and
+    the plain prefill's logits."""
+    plain = {"attn_impl": "ref"} if plain is None else plain
     B, S = tokens.shape
     shape = InputShape("p", S, B, "prefill")
-    dec = api.build(cfg, InputShape("d", S + n_new, B, "decode"))
-    caches = []
-    for impl in (None, "ref"):
-        lg, cache = api.build(cfg, shape, attn_impl=impl).fn(
-            model, {"tokens": tokens})
-        caches.append((lg, api.grow_cache(cache, S + n_new + 1)))
-    (lg_k, cache_k), (lg_r, cache_r) = caches
+    runs = []
+    for kw in ({}, plain):
+        dec = api.build(cfg, InputShape("d", S + n_new, B, "decode"),
+                        gmm_impl=kw.get("gmm_impl"))
+        lg, cache = api.build(cfg, shape, **kw).fn(model, {"tokens": tokens})
+        runs.append((lg, api.grow_cache(cache, S + n_new + 1), dec))
+    (lg_k, cache_k, dec_k), (lg_r, cache_r, dec_r) = runs
     tok = _greedy(lg_k, cfg)
-    k_logits, k_tokens, _, _ = _decode_run(dec, model, cache_k, tok, cfg,
+    k_logits, k_tokens, _, _ = _decode_run(dec_k, model, cache_k, tok, cfg,
                                            n_new)
-    r_logits, _, _, _ = _decode_run(dec, model, cache_r, tok, cfg, n_new,
+    r_logits, _, _, _ = _decode_run(dec_r, model, cache_r, tok, cfg, n_new,
                                     feed=k_tokens)
     return ((lg_k - lg_r).abs().max().item(),
             max((a - b).abs().max().item()
                 for a, b in zip(k_logits, r_logits)), lg_r)
 
 
-def dense_lockstep(CONFIG, init_params, api, InputShape, fa_ops) -> dict:
-    """Lock-step serving of the full 40-layer GLM-4-9B in bf16 through
-    ``api.build``: ``serve_world_model.py``'s shape (batch 8, 48-token
-    prompts), the cache grown to 65 slots, 16 greedy decodes; then the
-    same with the int8 cache, fed the fp run's tokens. The prefills and
-    decodes of both runs are the main path. The comparisons, after the
-    counts are read: the kernel's prefill against the plain attention's
-    and the decodes from either cache, at 2 layers within
-    ``LOGITS_ATOL`` and at all 40 within ``LOCKSTEP_FULL_ATOL``."""
-    cfg = CONFIG
-    B, S, n_new = LOCKSTEP["batch"], LOCKSTEP["prompt"], LOCKSTEP["new"]
-    slots = S + n_new + 1
+def _counts(counters: dict) -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+
+def _since(counters: dict, before: dict) -> dict:
+    return {name: n - before[name] for name, n in _counts(counters).items()}
+
+
+def _kv_bytes(cache) -> int:
+    return sum(cache[k].numel() * cache[k].element_size()
+               for k in ("k", "v", "k_scale", "v_scale", "pos")
+               if k in cache)
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lockstep_serving(cfg, init_params, api, InputShape, counters, B, S,
+                     n_new, kv_int8: bool) -> tuple:
+    """Lock-step serving of ``cfg`` at full size through ``api.build``: two
+    prefills (cold, warm) of a batch of ``B`` random ``S``-token prompts,
+    the cache grown, ``n_new`` greedy decodes; with ``kv_int8`` the int8
+    cache's prefill and decodes fed the fp run's tokens. The counts in
+    ``counters`` go to 0 just before and are read just after. Returns the
+    model, the prompt and the readings."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_params(cfg, 3)
@@ -3105,100 +3161,152 @@ def dense_lockstep(CONFIG, init_params, api, InputShape, fa_ops) -> dict:
         0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
     shape = InputShape("p", S, B, "prefill")
     pre = api.build(cfg, shape)
-    pre_q = api.build(cfg, shape, kv_int8=True)
     dec = api.build(cfg, InputShape("d", S + n_new, B, "decode"))
-
-    fa_ops.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     prefill_ms, per_prefill = [], []
     for _ in range(2):  # cold, then warm
-        l0 = fa_ops.launches
+        c0 = _counts(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lg0, cache = pre.fn(model, {"tokens": tokens})
         tok = _greedy(lg0, cfg)
         tok.cpu()  # the first token on the host: time to first token
         prefill_ms.append(_ms_since(t0))
-        per_prefill.append(fa_ops.launches - l0)
-    cache = api.grow_cache(cache, slots)
-    fp_logits, fp_tokens, tick_ms, cache = _decode_run(
-        dec, model, cache, tok, cfg, n_new)
-    l0 = fa_ops.launches
-    lgq, cache_q = pre_q.fn(model, {"tokens": tokens})
-    int8_launches = fa_ops.launches - l0
-    cache_q = api.grow_cache(cache_q, slots)
-    q_logits, _, q_tick_ms, cache_q = _decode_run(
-        dec, model, cache_q, tok, cfg, n_new, feed=fp_tokens)
+        per_prefill.append(_since(counters, c0))
+    cache = api.grow_cache(cache, S + n_new + 1)
+    c0 = _counts(counters)
+    logits, toks, tick_ms, cache = _decode_run(dec, model, cache, tok, cfg,
+                                               n_new)
+    decode_launches = _since(counters, c0)
+    out = {"tokens": tokens, "logits": logits, "new_tokens": toks,
+           "cache": cache, "first": tok}
+    int8 = None
+    if kv_int8:
+        c0 = _counts(counters)
+        _, cache_q = api.build(cfg, shape, kv_int8=True).fn(
+            model, {"tokens": tokens})
+        int8_prefill = _since(counters, c0)
+        cache_q = api.grow_cache(cache_q, S + n_new + 1)
+        c0 = _counts(counters)
+        q_logits, _, q_tick_ms, cache_q = _decode_run(
+            dec, model, cache_q, tok, cfg, n_new, feed=toks)
+        int8 = {"prefill_launches": int8_prefill,
+                "decode_launches": _since(counters, c0),
+                "max_logit_gap": max((a - b).abs().max().item()
+                                     for a, b in zip(q_logits, logits)),
+                "greedy_agreement": float(np.mean(
+                    [bool(torch.equal(_greedy(a, cfg), b))
+                     for a, b in zip(q_logits, toks)])),
+                "decode_tokens_per_s": B * n_new / (sum(q_tick_ms) / 1e3),
+                "finite": all(bool(torch.isfinite(t).all())
+                              for t in q_logits),
+                "index": int(cache_q["index"]),
+                "dtype": str(cache_q["k"].dtype),
+                "kv_bytes": _kv_bytes(cache_q)}
     torch.cuda.synchronize()
-    launches = fa_ops.launches
+    launches = _counts(counters)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    ticks = sorted(tick_ms)
+    readings = {
+        "config": cfg.name, "layers": cfg.num_layers, "batch": B,
+        "prompt_len": S, "new_tokens": n_new, "dtype": cfg.dtype,
+        "params_b": sum(t.numel() for t in model.parameters()) / 1e9,
+        "init_params_s": init_s, "init_params_peak_mem_gb": init_peak,
+        "prefill_ms_cold_warm": prefill_ms, "ttft_ms": prefill_ms[-1],
+        "decode_tokens_per_s": B * n_new / (sum(tick_ms) / 1e3),
+        "tick_ms_p50": ticks[len(ticks) // 2], "tick_ms_max": ticks[-1],
+        "peak_mem_gb": peak, "kv_bytes": _kv_bytes(cache),
+        "launches": launches,
+        "launches_per_prefill": per_prefill,
+        "launches_decode": decode_launches,
+        "decode_shapes": dec.fn.shape_count, "int8": int8}
+    return model, out, readings
 
+
+def lockstep_checks(name, cfg, out, readings, per_prefill, per_decode):
+    """The lock-step phases' shared invariants: the kernels' launches a
+    prefill and over the decodes, finite logits, tokens in the vocab, one
+    decode shape a cache kind, the index advanced."""
+    n_new = readings["new_tokens"]
+    toks = torch.cat([out["first"]] + out["new_tokens"], 1)
+    want_decode = {k: n * n_new for k, n in per_decode.items()}
+    checks = {
+        f"launches per prefill {per_prefill}":
+            readings["launches_per_prefill"] == [per_prefill] * 2,
+        f"launches per decode {per_decode}":
+            readings["launches_decode"] == want_decode,
+        "finite logits": all(bool(torch.isfinite(t).all())
+                             for t in out["logits"]),
+        "tokens in the vocab": bool(((toks >= 0)
+                                     & (toks < cfg.vocab_size)).all()),
+        "index advanced": int(out["cache"]["index"])
+            == readings["prompt_len"] + n_new,
+    }
+    int8 = readings["int8"]
+    if int8 is not None:
+        checks.update({
+            "int8 launches as fp": int8["prefill_launches"] == per_prefill
+                and int8["decode_launches"] == want_decode,
+            "int8 cache finite and advanced": int8["finite"]
+                and int8["index"] == readings["prompt_len"] + n_new
+                and int8["dtype"] == "torch.int8",
+            "one decode shape a cache kind": readings["decode_shapes"] == 2})
+    else:
+        checks["one decode shape"] = readings["decode_shapes"] == 1
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{name} failed: {failed}; {readings}")
+    readings["tokens_row0"] = toks[0, :8].tolist()
+
+
+def dense_lockstep(CONFIG, init_params, api, InputShape, fa_ops) -> dict:
+    """Lock-step serving of the full 40-layer GLM-4-9B in bf16 through
+    ``api.build`` (``lockstep_serving``): ``serve_world_model.py``'s shape
+    (batch 8, 48-token prompts), the cache grown to 65 slots, 16 greedy
+    decodes; then the same with the int8 cache, fed the fp run's tokens:
+    40 flash launches a prefill, none in decode. The comparisons, after
+    the counts are read: the kernel's prefill against the plain
+    attention's and the decodes from either cache, at all 40 layers
+    within ``LOCKSTEP_FULL_ATOL`` and at 2 layers within
+    ``LOGITS_ATOL``."""
+    cfg = CONFIG
+    B, S, n_new = (LOCKSTEP[k] for k in ("batch", "prompt", "new"))
+    model, out, readings = lockstep_serving(
+        cfg, init_params, api, InputShape, {"flash": (fa_ops, "launches")},
+        B, S, n_new, True)
+    lockstep_checks("dense_lockstep", cfg, out, readings,
+                    {"flash": cfg.num_layers}, {"flash": 0})
+    tokens = out["tokens"]
     prefill_err, decode_err, lg_ref = lockstep_vs_plain(
         cfg, model, api, InputShape, tokens, n_new)
+    del model, out
+    _free()
     cut = dataclasses.replace(cfg, num_layers=2, name=cfg.name + "-l2")
     cut_model = init_params(cut, 3)
     cut_prefill_err, cut_decode_err, _ = lockstep_vs_plain(
         cut, cut_model, api, InputShape, tokens, n_new)
     del cut_model
-    int8_gap = max((a - b).abs().max().item()
-                   for a, b in zip(q_logits, fp_logits))
-    agree = float(np.mean([bool(torch.equal(_greedy(a, cfg), b))
-                           for a, b in zip(q_logits, fp_tokens)]))
-    toks = torch.cat([tok] + fp_tokens, 1)
-    kv_bytes = {name: sum(c[k].numel() * c[k].element_size()
-                          for k in ("k", "v", "k_scale", "v_scale", "pos")
-                          if k in c)
-                for name, c in (("fp", cache), ("int8", cache_q))}
+    _free()
     checks = {
-        f"{cfg.num_layers} flash launches per prefill":
-            per_prefill == [cfg.num_layers] * 2
-            and int8_launches == cfg.num_layers,
-        "no flash launch in decode": launches == 3 * cfg.num_layers,
         "2 layers: prefill and decode logits kernel vs plain within "
         "LOGITS_ATOL": max(cut_prefill_err, cut_decode_err) <= LOGITS_ATOL,
         "40 layers: prefill and decode logits kernel vs plain within "
         "LOCKSTEP_FULL_ATOL": max(prefill_err, decode_err)
             <= LOCKSTEP_FULL_ATOL,
-        "finite logits": all(bool(torch.isfinite(t).all())
-                             for t in fp_logits + q_logits),
-        "one decode input shape per cache kind": dec.fn.shape_count == 2,
-        "tokens in the vocab": bool(((toks >= 0)
-                                     & (toks < cfg.vocab_size)).all()),
-        "index advanced": int(cache["index"]) == S + n_new
-            and int(cache_q["index"]) == S + n_new,
-        "int8 cache": cache_q["k"].dtype == torch.int8,
     }
     failed = [c for c, ok in checks.items() if not ok]
     if failed:
-        raise RuntimeError(f"dense_lockstep failed: {failed}; launches "
-                           f"{per_prefill} {int8_launches} {launches}, "
-                           f"errors {cut_prefill_err} {cut_decode_err} "
-                           f"(2 layers), {prefill_err} {decode_err}")
-    ticks = sorted(tick_ms)
-    out = {
-        "config": cfg.name, "layers": cfg.num_layers, "batch": B,
-        "prompt_len": S, "new_tokens": n_new, "cache_slots": slots,
-        "dtype": cfg.dtype, "init_params_s": init_s,
-        "prefill_ms_cold_warm": prefill_ms, "ttft_ms": prefill_ms[-1],
-        "decode_tokens_per_s": B * n_new / (sum(tick_ms) / 1e3),
-        "tick_ms_p50": ticks[len(ticks) // 2], "tick_ms_max": ticks[-1],
-        "peak_mem_gb": peak, "init_params_peak_mem_gb": init_peak,
-        "attention_launches": launches,
-        "launches_per_prefill": per_prefill,
-        "prefill_max_abs_err": prefill_err,
-        "decode_max_abs_err": decode_err, "atol": LOCKSTEP_FULL_ATOL,
-        "l2_prefill_max_abs_err": cut_prefill_err,
-        "l2_decode_max_abs_err": cut_decode_err, "l2_atol": LOGITS_ATOL,
-        "logits_std": lg_ref.std().item(),
-        "logits_max_abs": lg_ref.abs().max().item(),
-        "int8": {"launches": int8_launches, "max_logit_gap": int8_gap,
-                 "greedy_agreement": agree,
-                 "decode_tokens_per_s": B * n_new / (sum(q_tick_ms) / 1e3),
-                 "kv_bytes": kv_bytes["int8"], "fp_kv_bytes": kv_bytes["fp"]},
-        "tokens_row0": toks[0, :8].tolist()}
-    del model, cache, cache_q
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
+        raise RuntimeError(f"dense_lockstep failed: {failed}; errors "
+                           f"{cut_prefill_err} {cut_decode_err} (2 layers),"
+                           f" {prefill_err} {decode_err}")
+    return {**readings, "cache_slots": S + n_new + 1,
+            "prefill_max_abs_err": prefill_err,
+            "decode_max_abs_err": decode_err, "atol": LOCKSTEP_FULL_ATOL,
+            "l2_prefill_max_abs_err": cut_prefill_err,
+            "l2_decode_max_abs_err": cut_decode_err, "l2_atol": LOGITS_ATOL,
+            "logits_std": lg_ref.std().item(),
+            "logits_max_abs": lg_ref.abs().max().item()}
 
 
 def lm_train(ModelConfig, init_params, api, InputShape, LM, adam,
@@ -3342,6 +3450,277 @@ def wm_mbrl(LM, fa_ops) -> dict:
             "prefill_max_abs_err": err, "atol": LOGITS_ATOL}
 
 
+# ---------------------------------------------------------------- phase 14
+
+# the bf16 ragged kernel vs the looped plain product: both sum exact bf16
+# products in f32 and round once to bf16, so an output may round to the
+# other bf16 neighbour of the f32 sum and no further: one bf16 ulp (2^-7)
+# of the output's scale
+GMM_BF16_TOL = 2.0 ** -7
+# torch._grouped_mm, the yardstick timed beside the kernel, is held only to
+# the reference's bf16 tolerance before its time is kept
+GMM_BF16_LIBRARY_TOL = 5e-2
+# the dropless MoE's products: name, experts, tokens, top-k, K, N; each
+# token's top-k experts drawn at random, as an untrained router spreads
+# them. Moonlight-16B-A3B (d 2,048, 64 experts of 1,408) at moe_lockstep's
+# decode (8 tokens) and prefill (8 x 64), Mixtral-8x7B (d 4,096, 8 of
+# 14,336) at a prefill of 2,048 tokens; "up" is (T*k, d) x (E, d, f) (we1
+# and we3), "down" (T*k, f) x (E, f, d) (we2)
+MOE_GMM_CASES = [
+    ("moonlight_decode_up", 64, 8, 6, 2048, 1408),
+    ("moonlight_decode_down", 64, 8, 6, 1408, 2048),
+    ("moonlight_prefill_up", 64, 512, 6, 2048, 1408),
+    ("moonlight_prefill_down", 64, 512, 6, 1408, 2048),
+    ("mixtral_prefill_up", 8, 2048, 2, 4096, 14336),
+    ("mixtral_prefill_down", 8, 2048, 2, 14336, 4096),
+]
+MOE_GMM_MAIN = "moonlight_prefill_up"
+# Moonlight-16B-A3B in lock step: the dense phase's batch, 64-token prompts
+MOE_LOCKSTEP = dict(batch=8, prompt=64, new=16)
+MOE_CUT_LAYERS = 2
+# moe_serve's depth: Moonlight's full width, 16 of its 48 layers, so that
+# the pushed second copy fits beside the first (~20 GB each)
+MOE_SERVE_LAYERS = 16
+# Zamba2-7B in lock step; the cut keeps one group of 6 and a tail of 1
+HYBRID_LOCKSTEP = dict(batch=4, prompt=256, new=16)
+HYBRID_CUT_LAYERS = 7
+# the 7-layer cut's logits, bf16 kernels vs the plain attention and scan:
+# the flash kernel rounds P to bf16 and the scan's bf16 route its operands,
+# by design, and 7 layers carry that on (0.28 at the prefill and 0.36 over
+# 16 decodes on an H100, logits of std 1.0, where the same cut in f32
+# agrees to 1.1e-4 through both kernels' f32 routes)
+HYBRID_BF16_ATOL = 0.5
+
+
+def routed_sizes(gen, experts: int, tokens: int, top_k: int) -> list:
+    """Rows an expert for ``tokens`` tokens that each pick ``top_k``
+    distinct experts at random, as a host list (sums to tokens x top_k)."""
+    picks = torch.rand((tokens, experts), generator=gen,
+                       device="cuda").argsort(-1)[:, :top_k]
+    return torch.bincount(picks.reshape(-1), minlength=experts).tolist()
+
+
+def check_moe_gmm(gmm_cuda, gmm_ref) -> dict:
+    """``gmm_ragged``'s bf16 route at the MoE's shapes and at the edge
+    shapes, each against ``ref.grouped_matmul_looped`` within
+    ``GMM_BF16_TOL`` of the output's scale, with device times of the
+    kernel, the plain loop and ``torch._grouped_mm`` in bf16, and the
+    least time (bf16 tensor-core work or the bytes: the rows, the weights
+    of the experts used, the output)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = [(name, G, None, T, k, K, N)
+             for name, G, T, k, K, N in MOE_GMM_CASES]
+    cases += [("edge_" + name, G, sizes, None, None, K, N)
+              for name, G, M, K, N, sizes in GMM_RAGGED_CASES
+              if name.startswith("edge")]
+    rows = {}
+    for name, G, sizes, T, k, K, N in cases:
+        if sizes is None:
+            sizes = routed_sizes(gen, G, T, k)
+        sizes = list(sizes)
+        M = sum(sizes)
+        lhs = (torch.randn((M, K), generator=gen, device="cuda")
+               * 0.5).bfloat16()
+        rhs = (torch.randn((G, K, N), generator=gen, device="cuda")
+               * K ** -0.5).bfloat16()
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        offsets = gmm_ref.group_offsets(gs)
+        ends = offsets[1:].contiguous()
+
+        def kernel():
+            return gmm_cuda.gmm_ragged(lhs, rhs, offsets)
+
+        def plain():
+            return gmm_ref.grouped_matmul_looped(lhs, rhs, sizes)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        err, tol = _scaled_err(got, want, GMM_BF16_TOL)
+        if got.dtype != torch.bfloat16 or not err <= tol:
+            raise RuntimeError(f"gmm_ragged bf16 {name}: {got.dtype}, max "
+                               f"abs err {err} > {tol}")
+        used = sum(1 for n in sizes if n > 0)
+        flops = 2.0 * M * K * N
+        nbytes = 2.0 * (M * K + used * K * N + M * N)
+        t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = device_ms(kernel)
+        library_ms, library_timing, library_error = grouped_mm_ms(
+            lambda: torch._grouped_mm(lhs, rhs, offs=ends), want,
+            GMM_BF16_LIBRARY_TOL)
+        rows[name] = {
+            "shape": [G, M, K, N], "experts_used": used,
+            "plan": dataclasses.asdict(gmm_cuda.plan_ragged(M, N, K)),
+            "max_abs_err": err, "tol": tol, "ms": ms,
+            "tflops": flops / ms / 1e9, "plain_ms": device_ms(plain),
+            "library_ms": library_ms, "library_timing": library_timing,
+            "library_error": library_error,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        emit({"phase": "moe_check", "kernel": "gmm_ragged_bf16",
+              "case": name, "group_sizes_head": sizes[:8], **rows[name]})
+        del lhs, rhs, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+class ExpertChoices:
+    """Records the expert choices of every ``moe._route`` call made inside
+    the ``with`` block (a measurement hook; the model is not changed)."""
+
+    def __init__(self, M):
+        self.M, self.route, self.idx = M, M._route, []
+
+    def __enter__(self):
+        def route(cfg, router, h):
+            out = self.route(cfg, router, h)
+            self.idx.append(torch.sort(out[2], -1).values)
+            return out
+        self.M._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.M._route = self.route
+
+
+def moe_cut_comparisons(cfg, init_params, api, InputShape, tokens, n_new,
+                        M) -> dict:
+    """The moe path's kernel-vs-plain comparisons at a 2-layer cut of the
+    full width, prefill and decodes: (1) bf16, the experts through the
+    kernel against the looped plain product, the attention through the
+    kernel in both, so that both runs route alike; (2) f32, every kernel
+    (flash attention and ``gmm_ragged`` on their f32 routes) against every
+    plain version; both held to ``LOGITS_ATOL``. (3) bf16, every kernel
+    against every plain version, reported only: there the attention's
+    bf16 rounding of P moves the router's logits, some tokens pick another
+    expert at a near-tie, and those rows' logits move by O(1); the tokens
+    whose expert set differs are counted, layer by layer."""
+    cut = dataclasses.replace(cfg, num_layers=MOE_CUT_LAYERS,
+                              name=f"{cfg.name}-l{MOE_CUT_LAYERS}")
+    out = {}
+    for name, dtype, plain in (
+            ("bf16_experts", "bfloat16", {"gmm_impl": "ref"}),
+            ("f32_all", "float32", {"attn_impl": "ref", "gmm_impl": "ref"}),
+            ("bf16_all", "bfloat16", {"attn_impl": "ref",
+                                      "gmm_impl": "ref"})):
+        run_cfg = dataclasses.replace(cut, dtype=dtype)
+        model = init_params(run_cfg, 3)
+        with ExpertChoices(M) as choices:
+            pre, dec, _ = lockstep_vs_plain(run_cfg, model, api, InputShape,
+                                            tokens, n_new, plain=plain)
+        # the kernel run's prefill routes first, then the plain run's
+        k_idx = choices.idx[:MOE_CUT_LAYERS]
+        r_idx = choices.idx[MOE_CUT_LAYERS:2 * MOE_CUT_LAYERS]
+        out[name] = {"prefill_max_abs_err": pre, "decode_max_abs_err": dec,
+                     "prefill_tokens_rerouted": [
+                         int((a != b).any(-1).sum())
+                         for a, b in zip(k_idx, r_idx)]}
+        del model
+        _free()
+    return out
+
+
+def moe_lockstep(CONFIG, init_params, api, InputShape, fa_ops,
+                 gmm_ops, M) -> dict:
+    """Lock-step serving of the full 48-layer Moonlight-16B-A3B in bf16
+    (~56 GB of weights): batch 8, 64-token prompts, 16 greedy decodes, fp
+    and int8 caches; each forward runs 48 flash prefills (none in decode)
+    and 3 x 48 bf16 ``gmm_ragged`` launches. Then, after the counts are
+    read and the model freed, ``moe_cut_comparisons``."""
+    cfg = CONFIG
+    B, S, n_new = (MOE_LOCKSTEP[k] for k in ("batch", "prompt", "new"))
+    counters = {"flash": (fa_ops, "launches"),
+                "gmm_ragged_bf16": (gmm_ops, "ragged_bf16_launches")}
+    model, out, readings = lockstep_serving(
+        cfg, init_params, api, InputShape, counters, B, S, n_new, True)
+    per_forward = 3 * cfg.num_layers
+    lockstep_checks("moe_lockstep", cfg, out, readings,
+                    {"flash": cfg.num_layers, "gmm_ragged_bf16": per_forward},
+                    {"flash": 0, "gmm_ragged_bf16": per_forward})
+    tokens = out["tokens"]
+    del model, out
+    _free()
+    errs = moe_cut_comparisons(cfg, init_params, api, InputShape, tokens,
+                               n_new, M)
+    held = [e for name in ("bf16_experts", "f32_all")
+            for e in (errs[name]["prefill_max_abs_err"],
+                      errs[name]["decode_max_abs_err"])]
+    if not max(held) <= LOGITS_ATOL:
+        raise RuntimeError(f"moe_lockstep: {MOE_CUT_LAYERS} layers, logits "
+                           f"kernel vs plain {errs} > {LOGITS_ATOL}")
+    return {**readings, "gmm_launches_per_forward": per_forward,
+            f"l{MOE_CUT_LAYERS}_kernel_vs_plain": errs,
+            "atol": LOGITS_ATOL}
+
+
+def moe_serve(CONFIG, init_params, ParameterServer, WorldModelServer,
+              fa_ops, gmm_ops) -> dict:
+    """The serve tier (``serve``'s run: 4 slots, 8 requests of mixed
+    lengths, one push) on Moonlight at full width and ``MOE_SERVE_LAYERS``
+    layers, bf16: every request answered, the push picked up, one decode
+    shape, and 3 bf16 ``gmm_ragged`` launches a layer in every prefill and
+    every decode tick."""
+    cfg = dataclasses.replace(CONFIG, num_layers=MOE_SERVE_LAYERS,
+                              name=f"{CONFIG.name}-l{MOE_SERVE_LAYERS}")
+    torch.cuda.reset_peak_memory_stats()
+    gmm_ops.ragged_bf16_launches = 0
+    srv, served = serve(cfg, init_params, ParameterServer, WorldModelServer,
+                        fa_ops)
+    launches = gmm_ops.ragged_bf16_launches
+    want = 3 * cfg.num_layers * (served["prefills"] + served["decode_ticks"])
+    del srv
+    _free()
+    if launches != want:
+        raise RuntimeError(f"moe_serve: {launches} gmm_ragged bf16 launches,"
+                           f" not {want} (3 a layer a forward)")
+    return {**served, "gmm_ragged_bf16_launches": launches}
+
+
+def hybrid_lockstep(CONFIG, init_params, api, InputShape, fa_ops,
+                    ssd_ops, LM) -> dict:
+    """Lock-step serving of the full 81-layer Zamba2-7B in bf16 (~14 GB):
+    batch 4, 256-token prompts, 16 greedy decodes; a prefill runs the
+    shared block's attention 14 times through the flash kernel (head dim
+    112 in the 128 build) and 81 ``ssd_chunked`` scans, a decode neither.
+    Then, after the counts are read and the model freed, the kernels'
+    prefill and decodes against the plain attention and scan at a 7-layer
+    cut (a group of 6 and a tail of 1): in f32 (both kernels' f32 routes)
+    within ``LOGITS_ATOL``, in bf16 within ``HYBRID_BF16_ATOL``."""
+    cfg = CONFIG
+    B, S, n_new = (HYBRID_LOCKSTEP[k] for k in ("batch", "prompt", "new"))
+    counters = {"flash": (fa_ops, "launches"),
+                "ssd_chunked": (ssd_ops, "launches")}
+    model, out, readings = lockstep_serving(
+        cfg, init_params, api, InputShape, counters, B, S, n_new, False)
+    n_inv = LM.n_shared_invocations(cfg)
+    lockstep_checks("hybrid_lockstep", cfg, out, readings,
+                    {"flash": n_inv, "ssd_chunked": cfg.num_layers},
+                    {"flash": 0, "ssd_chunked": 0})
+    tokens = out["tokens"]
+    del model, out
+    _free()
+    errs = {}
+    for dtype, atol in (("float32", LOGITS_ATOL),
+                        ("bfloat16", HYBRID_BF16_ATOL)):
+        cut = dataclasses.replace(cfg, num_layers=HYBRID_CUT_LAYERS,
+                                  dtype=dtype,
+                                  name=f"{cfg.name}-l{HYBRID_CUT_LAYERS}")
+        cut_model = init_params(cut, 3)
+        pre, dec, lg_ref = lockstep_vs_plain(
+            cut, cut_model, api, InputShape, tokens, n_new,
+            plain={"attn_impl": "ref", "ssd_impl": "ref"})
+        del cut_model
+        _free()
+        errs[dtype] = {"prefill_max_abs_err": pre, "decode_max_abs_err": dec,
+                       "atol": atol, "logits_std": lg_ref.std().item()}
+        if not max(pre, dec) <= atol:
+            raise RuntimeError(f"hybrid_lockstep: {HYBRID_CUT_LAYERS} layers"
+                               f" {dtype}, logits kernel vs plain {pre} "
+                               f"{dec} > {atol}")
+    return {**readings, "shared_invocations": n_inv, "head_dim": cfg.hd,
+            f"l{HYBRID_CUT_LAYERS}_kernel_vs_plain": errs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -3350,6 +3729,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.glm4_9b import CONFIG
     from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA
+    from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG as MOONLIGHT
+    from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2
     from repro_torch.core import AsyncTrainer, SequentialTrainer
     from repro_torch.core.servers import DataServer, ParameterServer
     from repro_torch.kernels import build
@@ -3367,6 +3748,7 @@ def main() -> int:
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.models import api
     from repro_torch.models import lm as LM
+    from repro_torch.models import moe as MOE
     from repro_torch.data.synthetic import DynamicsTokenStream
     from repro_torch.models.config import InputShape, ModelConfig
     from repro_torch.models.lm import init_params
@@ -3512,6 +3894,19 @@ def main() -> int:
     emit({"phase": "lm_train", **trained})
     wm = wm_mbrl(LM, fa_ops)
     emit({"phase": "wm_mbrl", **wm})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe_rows = check_moe_gmm(gmm_cuda, gmm_ref)
+    moe = moe_lockstep(MOONLIGHT, init_params, api, InputShape, fa_ops,
+                       gmm_ops, MOE)
+    emit({"phase": "moe_lockstep", **moe})
+    moe_served = moe_serve(MOONLIGHT, init_params, ParameterServer,
+                           WorldModelServer, fa_ops, gmm_ops)
+    emit({"phase": "moe_serve", **moe_served})
+    hybrid = hybrid_lockstep(ZAMBA2, init_params, api, InputShape, fa_ops,
+                             ssd_ops, LM)
+    emit({"phase": "hybrid_lockstep", **hybrid})
 
     main_row = rows[MAIN_PATH_CASE]
     wm_row = rows[WM_PATH_CASE]
@@ -3519,14 +3914,18 @@ def main() -> int:
               gmm_rows["ragged"][GMM_RAGGED_MAIN])
     im = imag_rows[IMAG_MAIN]
     sd = ssd_rows[SSD_MAIN]
+    mg = moe_rows[MOE_GMM_MAIN]
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": str(fa_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/flash_attention/pallas.py:71",
         "launches": served["attention_launches"],
-        "launches_dense_lockstep": lockstep["attention_launches"],
+        "launches_dense_lockstep": lockstep["launches"]["flash"],
         "launches_lm_train": trained["attention_launches"],
         "launches_wm_mbrl": wm["attention_launches"],
+        "launches_moe_lockstep": moe["launches"]["flash"],
+        "launches_moe_serve": moe_served["attention_launches"],
+        "launches_hybrid_lockstep": hybrid["launches"]["flash"],
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3534,7 +3933,10 @@ def main() -> int:
         "shape": MAIN_PATH_CASE,
         "wm_path": {k: wm_row[k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "max_abs_err")} | {"case": WM_PATH_CASE}}, {
+            "library_ms", "max_abs_err")} | {"case": WM_PATH_CASE},
+        "hybrid_path": {k: rows[HYBRID_ATTN_CASE][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")} | {"case": HYBRID_ATTN_CASE}}, {
         "name": "gmm_equal", "route": "cuda",
         "source": str(gmm_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/gmm/pallas.py:47",
@@ -3572,6 +3974,20 @@ def main() -> int:
         "dw_ms": rg["dw"]["ms"], "dw_bound_ms": rg["dw"]["bound_ms"],
         "dw_library_ms": rg["dw"]["library_ms"],
         "shape": GMM_RAGGED_MAIN}, {
+        "name": "gmm_ragged_bf16", "route": "cuda",
+        "source": str(gmm_cuda.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/gmm/pallas.py:104",
+        "launches": moe["launches"]["gmm_ragged_bf16"],
+        "launches_moe_serve": moe_served["gmm_ragged_bf16_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in moe_rows.values()),
+        "ms": mg["ms"], "plain_ms": mg["plain_ms"],
+        "bound_ms": mg["bound_ms"], "bound_by": mg["bound_by"],
+        "library_ms": mg["library_ms"], "tflops": mg["tflops"],
+        "shape": MOE_GMM_MAIN,
+        "other_shapes": {name: {k: r[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for name, r in moe_rows.items()
+            if not name.startswith("edge") and name != MOE_GMM_MAIN}}, {
         "name": "imag_fused", "route": "cuda",
         "source": str(imag_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/imag/pallas.py:97",
@@ -3593,11 +4009,15 @@ def main() -> int:
         "launches": ssm_served["ssd_launches"] + ssm_fwd["ssd_launches"],
         "launches_serve": ssm_served["ssd_launches"],
         "launches_forward": ssm_fwd["ssd_launches"],
+        "launches_hybrid_lockstep": hybrid["launches"]["ssd_chunked"],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows.values()),
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
         "library_ms": sd["library_ms"], "shape": SSD_MAIN,
-        "plan": sd["plan"]}]})
+        "plan": sd["plan"],
+        "hybrid_path": {k: ssd_rows[HYBRID_SSD_CASE][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "scaled_err")} | {"case": HYBRID_SSD_CASE}}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Port of ``repro/configs/registry.py``. Every id of the reference resolves,
-but only the dense decoders of the serving path and the pure-ssm
-Mamba2 are ported so far; the others raise and point at ROADMAP.md, which
-lists what is still to port.
+Port of ``repro/configs/registry.py``. Every id of the reference resolves;
+the dense, ssm, moe and hybrid decoders are ported, and the two left (the
+encoder-decoder ``seamless_m4t_medium`` and the vision model
+``phi3_vision_4_2b``) raise and point at ROADMAP.md, which lists what is
+still to port.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ ARCH_IDS = [
     "mamba2_2_7b",
 ]
 
-PORTED = {"glm4_9b", "granite_3_8b", "qwen3_14b", "mamba2_2_7b"}
+PORTED = {"glm4_9b", "granite_3_8b", "qwen3_14b", "mamba2_2_7b",
+          "mixtral_8x7b", "moonshot_v1_16b_a3b", "qwen3_moe_235b_a22b",
+          "zamba2_7b"}
 
 # CLI ids (dashes) -> module names
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
@@ -48,9 +51,13 @@ ALIASES.update({
 # the reference's table also names the archs still to port
 LONG_CONTEXT = {
     "mamba2_2_7b": "native",
+    "zamba2_7b": "native",
+    "mixtral_8x7b": "native",        # its sliding window is the arch's own
     "glm4_9b": "window",
     "qwen3_14b": "window",
     "granite_3_8b": "window",
+    "qwen3_moe_235b_a22b": "window",
+    "moonshot_v1_16b_a3b": "window",
 }
 
 LONG_WINDOW = 4096

@@ -1,6 +1,7 @@
 // Grouped matrix products for Hopper (sm_90a), in plain CUDA C++.
 //
-// Three kernels, f32 in and out, all on the same 3xTF32 tensor-core tiles:
+// Three kernels, f32 in and out, all on the same 3xTF32 tensor-core tiles,
+// and a bf16 route of the ragged one (gmm_ragged_bf16, at the end):
 //
 // gmm_equal replaces the TPU kernel src/repro/kernels/gmm/pallas.py::
 // _equal_grouped_matmul (body `_kernel`): C[g] = A[g] x B[g] for every group
@@ -100,7 +101,30 @@
 //   empty group's dW is written as zeros. The planner (plan_ragged_dw)
 //   picks (bm, bn, split) from (G, M, K, N), with M / G rows a group.
 //
+// gmm_ragged_bf16 is gmm_ragged on bf16 lhs, rhs and out: the route the
+// dropless MoE (models/moe.py) runs, three launches a layer, (T*k, d) x
+// (E, d, f) twice and (T*k, f) x (E, f, d) once. The TPU kernel is dtype-
+// generic: it casts both tiles to f32, dots them into an f32 accumulator
+// and rounds the output to lhs.dtype. A bf16 x bf16 product is exact in
+// f32, so one mma.sync.m16n8k16 bf16 pass with f32 accumulators computes
+// the same thing, the sums in another order; the store rounds to bf16
+// (to nearest even). No split of the operands is needed. It keeps
+// gmm_ragged's design, block for tile and group loop, on bf16 tiles with a
+// 64-wide contraction (four k16 steps a stage, two stages by cp.async;
+// 16-byte copies of 8 values where the contiguous extent is a multiple of
+// 8 and aligned, else plain loads with zeros past the edges) and the same
+// output tiles, as plan_ragged picks them. A shared tile keeps the
+// operand's contiguous dimension contiguous, its rows padded by 8 values
+// (16 bytes): a fragment's pairs along the contraction are one 32-bit
+// load where the contraction is contiguous, two 16-bit loads where it is
+// not (rhs stored (K, N)). What bounds it: at the MoE's prefill
+// (Moonlight, 3,072 rows over 64 experts) the expert weights' bytes, 0.37
+// GB a product against 18 GFLOP; at decode (48 rows) the same bytes of the
+// experts the rows use, read by few blocks, each walking its groups one
+// after another: latency, not the card's rate. It is forward only.
+//
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -534,6 +558,237 @@ int result(cudaError_t err) {
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// ------------------------------------------------------------ bf16 route
+
+typedef unsigned short bf16_t;    // a bf16 value's bits
+constexpr int BK16 = 64;          // bf16 contraction tile: four k16 steps
+
+// Shared tile of one bf16 operand: R rows of the output side by BK16
+// contraction columns. KMAJOR: stored [BK16][R + 8]; else [R][BK16 + 8].
+// Rows of 144 or 80 bytes keep every 16-byte copy aligned.
+template <int R, bool KMAJOR>
+struct Tile16 {
+  static constexpr int STRIDE = KMAJOR ? R + 8 : BK16 + 8;
+  static constexpr int SIZE = KMAJOR ? BK16 * STRIDE : R * STRIDE;
+  __device__ static __forceinline__ int at(int k, int r) {
+    return KMAJOR ? k * STRIDE + r : r * STRIDE + k;
+  }
+};
+
+// load_tile's bf16 form: 16-byte copies of 8 values (vec: ld and g are
+// multiples of 8 values, and the contiguous dimension ends at ld), else
+// plain loads; everything outside the rows [rlo, rhi) and the contraction
+// < khi reads 0.
+template <int R, bool KMAJOR>
+__device__ __forceinline__ void load_tile16(bf16_t* s, const bf16_t* g,
+                                            int ld, int r0, int rlo,
+                                            int rhi, int k0, int khi,
+                                            bool vec) {
+  using L = Tile16<R, KMAJOR>;
+  const int t = threadIdx.x;
+  constexpr int CONTIG = KMAJOR ? R : BK16;
+  if (vec) {
+    constexpr int CH = CONTIG / 8;
+#pragma unroll
+    for (int i = 0; i < R * BK16 / 8 / THREADS; ++i) {
+      const int c = t + i * THREADS;
+      const int outer = c / CH, inner = (c % CH) * 8;
+      const int kk = KMAJOR ? outer : inner, rr = KMAJOR ? inner : outer;
+      const int k = k0 + kk, r = r0 + rr;
+      const bool ok = k < khi && r >= rlo && r < rhi;
+      const bf16_t* src =
+          ok ? g + (KMAJOR ? (size_t)k * ld + r : (size_t)r * ld + k) : g;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       smem_u32(s + L::at(kk, rr))),
+                   "l"(src), "r"(ok ? 16 : 0));
+    }
+  } else {
+#pragma unroll 8
+    for (int i = 0; i < R * BK16 / THREADS; ++i) {
+      const int e = t + i * THREADS;
+      const int outer = e / CONTIG, inner = e % CONTIG;
+      const int kk = KMAJOR ? outer : inner, rr = KMAJOR ? inner : outer;
+      const int k = k0 + kk, r = r0 + rr;
+      const bool ok = k < khi && r >= rlo && r < rhi;
+      s[L::at(kk, rr)] =
+          ok ? g[KMAJOR ? (size_t)k * ld + r : (size_t)r * ld + k]
+             : (bf16_t)0;
+    }
+  }
+}
+
+// The two values at contraction k and k + 1 of row r, k even, as one mma
+// register (k in the low half)
+template <int R, bool KMAJOR>
+__device__ __forceinline__ unsigned pair16(const bf16_t* s, int k, int r) {
+  using L = Tile16<R, KMAJOR>;
+  if (KMAJOR)
+    return (unsigned)s[L::at(k, r)] | ((unsigned)s[L::at(k + 1, r)] << 16);
+  return *reinterpret_cast<const unsigned*>(s + L::at(k, r));
+}
+
+// c += a (16 x 16, row) x b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += A[rows m0.. inside [row_lo, row_hi), contraction [0, K)] x
+// op(B)[that contraction, columns n0.. < N] in bf16 mma steps over
+// BK16-wide tiles that come in two stages deep. A (M, K) row-major; TB: B's
+// (k, n) at bg[n * ldb + k], else bg[k * ldb + n].
+template <int BM, int BN, bool TB>
+__device__ __forceinline__ void mma_range16(Acc<BM, BN>& acc, bf16_t* smem,
+                                            const bf16_t* ag, int m0,
+                                            int row_lo, int row_hi,
+                                            const bf16_t* bg, int ldb,
+                                            int n0, int N, int K, bool vec_a,
+                                            bool vec_b) {
+  constexpr int WM = BM / 2, WN = BN / 2;
+  constexpr int MT = WM / 16, NT = WN / 8;
+  using LA = Tile16<BM, false>;
+  using LB = Tile16<BN, !TB>;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int wm0 = (warp / 2) * WM, wn0 = (warp % 2) * WN;
+  const int nk = (K + BK16 - 1) / BK16;
+
+  auto stage_a = [&](int s) { return smem + s * LA::SIZE; };
+  auto stage_b = [&](int s) { return smem + 2 * LA::SIZE + s * LB::SIZE; };
+  auto load = [&](int s, int t) {
+    const int k0 = t * BK16;
+    load_tile16<BM, false>(stage_a(s), ag, K, m0, row_lo, row_hi, k0, K,
+                           vec_a);
+    load_tile16<BN, !TB>(stage_b(s), bg, ldb, n0, 0, N, k0, K, vec_b);
+    cp_async_commit();
+  };
+
+  if (nk > 0) load(0, 0);
+  for (int t = 0; t < nk; ++t) {
+    const int s = t & 1;
+    if (t + 1 < nk) {
+      load(s ^ 1, t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16_t* As = stage_a(s);
+    const bf16_t* Bs = stage_b(s);
+    const int k_left = K - t * BK16;  // past it the tile holds 0
+#pragma unroll
+    for (int kk = 0; kk < BK16; kk += 16) {
+      if (kk >= k_left) break;
+      const int k = kk + tig * 2;
+      unsigned a[MT][4], b[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r = wm0 + mt * 16 + gid;
+        a[mt][0] = pair16<BM, false>(As, k, r);
+        a[mt][1] = pair16<BM, false>(As, k, r + 8);
+        a[mt][2] = pair16<BM, false>(As, k + 8, r);
+        a[mt][3] = pair16<BM, false>(As, k + 8, r + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = wn0 + nt * 8 + gid;
+        b[nt][0] = pair16<BN, !TB>(Bs, k, n);
+        b[nt][1] = pair16<BN, !TB>(Bs, k + 8, n);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+    }
+    __syncthreads();
+  }
+}
+
+// store_tile's bf16 form: each f32 sum rounded to nearest even
+template <int BM, int BN>
+__device__ __forceinline__ void store_tile16(const Acc<BM, BN>& acc,
+                                             bf16_t* c, int ld, int m0,
+                                             int M, int n0, int N) {
+  constexpr int WM = BM / 2, WN = BN / 2;
+  constexpr int MT = WM / 16, NT = WN / 8;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int wm0 = (warp / 2) * WM, wn0 = (warp % 2) * WN;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm0 + mt * 16 + gid + 8 * h;
+        const int n = n0 + wn0 + nt * 8 + tig * 2;
+        if (m >= M) continue;
+        if (n < N)
+          c[(size_t)m * ld + n] =
+              __bfloat16_as_ushort(__float2bfloat16_rn(acc[mt][nt][2 * h]));
+        if (n + 1 < N)
+          c[(size_t)m * ld + n + 1] = __bfloat16_as_ushort(
+              __float2bfloat16_rn(acc[mt][nt][2 * h + 1]));
+      }
+}
+
+template <int BM, int BN, bool TB>
+struct Smem16 {
+  static constexpr int ELEMS =
+      2 * (Tile16<BM, false>::SIZE + Tile16<BN, !TB>::SIZE);
+};
+
+// gmm_ragged_tc on bf16: grid (ceil(M / BM) * tiles_n); block x owns
+// output tile x (row-major) and visits the groups that overlap its rows.
+template <int BM, int BN, bool TB>
+__global__ void __launch_bounds__(THREADS)
+    gmm_ragged_bf16_tc(const bf16_t* __restrict__ lhs,
+                       const bf16_t* __restrict__ rhs,
+                       const int* __restrict__ offs,
+                       bf16_t* __restrict__ out, int G, int M, int N, int K,
+                       long long b_gs, int tiles_n, int vec_a, int vec_b) {
+  __shared__ __align__(16) bf16_t smem[Smem16<BM, BN, TB>::ELEMS];
+  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
+  Acc<BM, BN> acc = {};
+  for (int g = 0; g < G; ++g) {
+    const int start = max(__ldg(offs + g), 0);
+    const int end = min(__ldg(offs + g + 1), M);
+    if (start >= m0 + BM) break;
+    if (end <= max(start, m0)) continue;
+    mma_range16<BM, BN, TB>(acc, smem, lhs, m0, start, end, rhs + g * b_gs,
+                            TB ? K : N, n0, N, K, vec_a, vec_b);
+  }
+  store_tile16<BM, BN>(acc, out, N, m0, M, n0, N);
+}
+
+template <int BM, int BN>
+struct RaggedBf16Launch {
+  static cudaError_t run(int trans_b, const bf16_t* lhs, const bf16_t* rhs,
+                         const int* offs, bf16_t* out, int G, int M, int N,
+                         int K, long long b_gs, int vec_a, int vec_b,
+                         cudaStream_t s) {
+    const int tn = tiles(N, BN);
+    const long long gx = (long long)tiles(M, BM) * tn;
+    auto go = [&](auto kernel) {
+      return launch(kernel, gx, 1, 1, s, lhs, rhs, offs, out, G, M, N, K,
+                    b_gs, tn, vec_a, vec_b);
+    };
+    return trans_b ? go(gmm_ragged_bf16_tc<BM, BN, true>)
+                   : go(gmm_ragged_bf16_tc<BM, BN, false>);
+  }
+};
+
+// 16-byte copies of bf16 need the base, the contiguous extent and the
+// group stride to be multiples of 8 values
+bool vec16_ok(const void* p, long long ld, long long gs) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 8 == 0 &&
+         gs % 8 == 0;
+}
+
 }  // namespace tc
 
 // C[g] = op(A)[g] x op(B)[g] on (bm x bn) output tiles with the contraction
@@ -590,6 +845,22 @@ extern "C" int gmm_ragged_dw(const float* x, const float* dy, const int* offs,
   return tc::result(tc::by_tile<tc::RaggedDwLaunch>(
       bm, bn, x, dy, offs, dw, G, M, K, N, split, (int)tc::vec_ok(x, K, 0),
       (int)tc::vec_ok(dy, N, 0), static_cast<cudaStream_t>(stream)));
+}
+
+// gmm_ragged on bf16 (each value's 16 bits): out (M, N) = ragged lhs (M, K)
+// x rhs over the groups of `offs`, as gmm_ragged, with f32 sums rounded to
+// bf16 on the store. Rows no group covers get 0.
+extern "C" int gmm_ragged_bf16(const unsigned short* lhs,
+                               const unsigned short* rhs, const int* offs,
+                               unsigned short* out, int G, int M, int N,
+                               int K, int trans_b, long long rhs_group_stride,
+                               int bm, int bn, void* stream) {
+  if (M == 0 || N == 0) return 0;
+  return tc::result(tc::by_tile<tc::RaggedBf16Launch>(
+      bm, bn, trans_b, lhs, rhs, offs, out, G, M, N, K, rhs_group_stride,
+      (int)tc::vec16_ok(lhs, K, 0),
+      (int)tc::vec16_ok(rhs, trans_b ? K : N, rhs_group_stride),
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* gmm_error_string(int code) {

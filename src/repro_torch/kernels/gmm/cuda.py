@@ -4,7 +4,10 @@
 ``repro/kernels/gmm/pallas.py::_equal_grouped_matmul`` and
 ``::_ragged_grouped_matmul``, and adds the ragged product's weight
 gradient ``gmm_ragged_dw``; its header says what bounds them and how they
-are laid out. The library is compiled by ``kernels/build.py`` at the
+are laid out. ``gmm_equal`` and ``gmm_ragged_dw`` take float32;
+``gmm_ragged`` takes float32 or bfloat16 (both operands of one dtype, the
+output in it too), as the reference's ragged kernel follows ``lhs.dtype``.
+The library is compiled by ``kernels/build.py`` at the
 first launch, never at import. The functions launch on the current
 stream, do not synchronise, and raise on inputs the kernels do not take.
 
@@ -168,6 +171,8 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.gmm_ragged.restype = ctypes.c_int
+    lib.gmm_ragged_bf16.argtypes = lib.gmm_ragged.argtypes
+    lib.gmm_ragged_bf16.restype = ctypes.c_int
     lib.gmm_ragged_dw.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.gmm_ragged_dw.restype = ctypes.c_int
@@ -176,15 +181,16 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_f32(name: str, t: torch.Tensor, dims: int,
-               device: torch.device) -> None:
+def _check(name: str, t: torch.Tensor, dims: int, device: torch.device,
+           dtype: torch.dtype = torch.float32) -> None:
     if not t.is_cuda:
         raise ValueError(f"gmm kernel: {name} is on {t.device}, not a CUDA "
                          "device")
     if t.device != device:
         raise ValueError(f"gmm kernel: operands on {device} and {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"gmm kernel takes float32, got {name} {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"gmm kernel takes {dtype} here, got {name} "
+                         f"{t.dtype}")
     if t.dim() != dims:
         raise ValueError(f"gmm kernel: {name} must be {dims}-D, got shape "
                          f"{tuple(t.shape)}")
@@ -218,8 +224,8 @@ def gmm_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     contiguous tensor) and may broadcast over the groups (stride 0, as
     ``x[None].expand(G, M, K)``): the kernel reads them in place. The
     launch follows :func:`plan_equal`."""
-    _check_f32("a", a, 3, a.device)
-    _check_f32("b", b, 3, a.device)
+    _check("a", a, 3, a.device)
+    _check("b", b, 3, a.device)
     G, M, K = a.shape
     if b.shape[0] != G or b.shape[1] != K:
         raise ValueError(f"gmm_equal: a {tuple(a.shape)} and b "
@@ -255,17 +261,25 @@ def _check_contiguous(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {what} must be contiguous")
 
 
+_RAGGED_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def gmm_ragged(lhs: torch.Tensor, rhs: torch.Tensor,
                offsets: torch.Tensor) -> torch.Tensor:
-    """lhs (M, K), rows sorted by group, x rhs (G, K, N) -> (M, N).
+    """lhs (M, K), rows sorted by group, x rhs (G, K, N) -> (M, N) in
+    ``lhs.dtype``, float32 (3xTF32 tiles) or bfloat16 (bf16 tiles, f32
+    sums rounded once); ``rhs`` of the same dtype.
     ``offsets``: (G + 1,) int32 on the card, ``offsets[g]`` the first row
     of group g and ``offsets[G] == M``; rows past ``offsets[G]`` get 0.
     ``rhs`` may be a transposed view (``w.transpose(1, 2)`` of a
     contiguous (G, N, K) tensor, as the backward's ``dx = dy x W^T``
     passes it): the kernel reads it in place. The launch follows
     :func:`plan_ragged`."""
-    _check_f32("lhs", lhs, 2, lhs.device)
-    _check_f32("rhs", rhs, 3, lhs.device)
+    if lhs.dtype not in _RAGGED_DTYPES:
+        raise ValueError(f"gmm_ragged takes float32 or bfloat16, got lhs "
+                         f"{lhs.dtype}")
+    _check("lhs", lhs, 2, lhs.device, lhs.dtype)
+    _check("rhs", rhs, 3, lhs.device, lhs.dtype)
     M, K = lhs.shape
     G, _, N = rhs.shape
     if rhs.shape[1] != K:
@@ -275,12 +289,13 @@ def gmm_ragged(lhs: torch.Tensor, rhs: torch.Tensor,
     _check_contiguous("gmm_ragged", lhs=lhs)
     trans_b, b_gs = _layout("rhs", rhs)
     plan = plan_ragged(M, N, K)
-    out = torch.empty((M, N), dtype=torch.float32, device=lhs.device)
+    out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
     lib = _library()
-    err = lib.gmm_ragged(lhs.data_ptr(), rhs.data_ptr(), offsets.data_ptr(),
-                         out.data_ptr(), G, M, N, K, trans_b, b_gs, plan.bm,
-                         plan.bn,
-                         torch.cuda.current_stream(lhs.device).cuda_stream)
+    launch = (lib.gmm_ragged if lhs.dtype == torch.float32
+              else lib.gmm_ragged_bf16)
+    err = launch(lhs.data_ptr(), rhs.data_ptr(), offsets.data_ptr(),
+                 out.data_ptr(), G, M, N, K, trans_b, b_gs, plan.bm, plan.bn,
+                 torch.cuda.current_stream(lhs.device).cuda_stream)
     _raise_on(err, lib, "gmm_ragged")
     return out
 
@@ -293,8 +308,8 @@ def gmm_ragged_dw(a: torch.Tensor, b: torch.Tensor,
     :func:`gmm_ragged`; an empty group's slice is zeros, rows past
     ``offsets[G]`` count in no group. The launch follows
     :func:`plan_ragged_dw`."""
-    _check_f32("a", a, 2, a.device)
-    _check_f32("b", b, 2, a.device)
+    _check("a", a, 2, a.device)
+    _check("b", b, 2, a.device)
     M, K = a.shape
     N = b.shape[1]
     if b.shape[0] != M:

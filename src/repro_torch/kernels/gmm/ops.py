@@ -22,17 +22,27 @@ CPU can run the card's wiring with the plain products injected:
   ``dx = R(dy, W^T)`` (the weights read transposed in place) and
   ``dW = T(x, dy)``; T's is ``da = R(b, dZ^T)`` and ``db = R(a, dZ)``. So
   the two are closed under differentiation.
-* ragged, plain route: autograd through ``ref.grouped_matmul``'s gather,
-  as ``jax.grad`` runs through the reference's ``ref`` route. It is the
-  independent yardstick the card holds the Functions to.
+* ragged, plain route: autograd through the plain product, as
+  ``jax.grad`` runs through the reference's ``ref`` route. On CPU tensors
+  that is ``ref.grouped_matmul``'s gather, as the oracle's; on CUDA
+  tensors ``ref.grouped_matmul_looped``, a loop over the groups, since the
+  gather's (M, K, N) weights would not fit the card at the MoE's widths.
+  It is the independent yardstick the card holds the Functions to.
 
 Each backward computes only the operands ``needs_input_grad`` asks for.
 Offsets stay on the device and no size is read on the host.
 
+bf16. The ragged kernel's bf16 route (the dropless MoE's products) is
+forward-only: ``RaggedGroupedMatmulBf16`` raises if asked for a gradient,
+as flash attention and the SSD scan do, until a bf16 backward kernel comes
+with MoE training (ROADMAP.md). The plain route keeps its autograd in
+bf16 too.
+
 The counters count kernel launches made here, so a run can show that its
 path went through them: the equal kernel's forward and backward products
 apart, and the ragged kernel's forward products, its products inside a
-backward (``dx``, and T's backward), and ``gmm_ragged_dw`` (``dW``).
+backward (``dx``, and T's backward), ``gmm_ragged_dw`` (``dW``) and its
+bf16 route's products.
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ equal_bwd_launches = 0    # gmm_equal, backward products (dX and dW)
 ragged_launches = 0       # gmm_ragged, forward products
 ragged_bwd_launches = 0   # gmm_ragged inside a backward (dx)
 ragged_dw_launches = 0    # gmm_ragged_dw (dW)
+ragged_bf16_launches = 0  # gmm_ragged on bf16 (forward only)
 # the counts stay exact when worker threads launch at once
 _count_lock = threading.Lock()
 
@@ -85,6 +96,14 @@ def _kernel_ragged_t(a, b, offsets):
     out = cuda.gmm_ragged_dw(a.contiguous(), b.contiguous(), offsets)
     with _count_lock:
         ragged_dw_launches += 1
+    return out
+
+
+def _kernel_ragged_bf16(lhs, rhs, offsets):
+    global ragged_bf16_launches
+    out = cuda.gmm_ragged(lhs.contiguous(), rhs, offsets)
+    with _count_lock:
+        ragged_bf16_launches += 1
     return out
 
 
@@ -191,6 +210,21 @@ class RaggedTransposedMatmul(torch.autograd.Function):
         return d_a, d_b, None, None
 
 
+class RaggedGroupedMatmulBf16(torch.autograd.Function):
+    """The bf16 kernel route of the ragged product; a gradient raises."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, offsets):
+        return _kernel_ragged_bf16(lhs, rhs, offsets)
+
+    @staticmethod
+    def backward(ctx, dy):
+        raise NotImplementedError(
+            "the bf16 gmm_ragged kernel is forward-only: its backward "
+            "kernels come with MoE training (ROADMAP.md, open items); "
+            "differentiate the plain product with impl='ref' meanwhile")
+
+
 def _use_kernel(t: torch.Tensor, impl) -> bool:
     if impl is None:
         return t.is_cuda
@@ -204,15 +238,20 @@ def grouped_matmul(lhs, rhs, group_sizes=None, *, impl: str | None = None):
     grouped matmul — same contract as ``ref.grouped_matmul``.
 
     ``impl``: None picks by device (kernel on CUDA, ref on CPU); "cuda"
-    insists on the kernel; "ref" runs the plain version anywhere."""
+    insists on the kernel; "ref" runs the plain version anywhere (ragged:
+    the gather on the CPU, the loop over groups on the card)."""
     kernel = _use_kernel(lhs, impl)
     if group_sizes is None:
         return EqualGroupedMatmul.apply(
             lhs, rhs, _kernel_equal if kernel else _ref_equal)
     if not kernel:
+        if lhs.is_cuda:
+            return ref.grouped_matmul_looped(lhs, rhs, group_sizes)
         return ref.grouped_matmul(lhs, rhs, group_sizes)
-    return RaggedGroupedMatmul.apply(lhs, rhs, ref.group_offsets(group_sizes),
-                                     KERNEL_RAGGED)
+    offsets = ref.group_offsets(group_sizes)
+    if lhs.dtype == torch.bfloat16:
+        return RaggedGroupedMatmulBf16.apply(lhs, rhs, offsets)
+    return RaggedGroupedMatmul.apply(lhs, rhs, offsets, KERNEL_RAGGED)
 
 
 def ensemble_mlp(members, x, *, impl: str | None = None):

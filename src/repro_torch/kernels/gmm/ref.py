@@ -21,6 +21,11 @@ This is the kernels' plain version: the CPU runs it, the tests hold it
 against the JAX oracle, and ``chip_smoke.py`` holds the kernels against
 it on the card. Like the oracle, the ragged product materialises the
 per-row gathered ``rhs`` (M, K, N); it is the reference, not a fast path.
+In bf16 it multiplies in f32 and rounds the result once, as the oracle
+does. ``grouped_matmul_looped`` is the same ragged product as a loop over
+the groups, whose memory does not grow with M x K x N: the plain route on
+the card (``ops.grouped_matmul``), where the gather would not fit at the
+MoE's widths (Mixtral's prefill: 481 GB).
 """
 from __future__ import annotations
 
@@ -59,7 +64,42 @@ def grouped_matmul(lhs, rhs, group_sizes=None):
     if group_sizes is None:
         return torch.matmul(lhs, rhs)
     gid = group_ids(group_sizes, lhs.shape[0])
-    return torch.einsum("mk,mkn->mn", lhs, rhs[gid])
+    if lhs.dtype != torch.bfloat16:
+        return torch.einsum("mk,mkn->mn", lhs, rhs[gid])
+    return torch.einsum("mk,mkn->mn", lhs.float(),
+                        rhs[gid].float()).to(lhs.dtype)
+
+
+def _mm_f32(a, b):
+    """a @ b; bf16 operands summed in f32 and returned in f32, through the
+    card's f32-accumulating product, or widened (exactly) elsewhere and
+    where a gradient is needed (``torch.mm(out_dtype=)`` has none)."""
+    if a.dtype != torch.bfloat16:
+        return a @ b
+    needs_grad = torch.is_grad_enabled() and (a.requires_grad
+                                              or b.requires_grad)
+    if a.is_cuda and not needs_grad:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def grouped_matmul_looped(lhs, rhs, group_sizes):
+    """The ragged ``grouped_matmul`` as a loop over the groups: rows
+    ``[off_g, off_g + size_g)`` times ``rhs[g]``, f32 sums rounded once to
+    ``lhs.dtype``; rows beyond ``sum(group_sizes)`` are multiplied by the
+    last group, as there. ``group_sizes`` is read on the host (a tensor),
+    or given there (a sequence, so a CUDA graph can capture the loop)."""
+    sizes = (group_sizes.tolist() if torch.is_tensor(group_sizes)
+             else list(group_sizes))
+    M = lhs.shape[0]
+    out = lhs.new_empty((M, rhs.shape[2]))
+    start = 0
+    for g, size in enumerate(sizes):
+        end = M if g == len(sizes) - 1 else min(start + int(size), M)
+        if end > start:
+            out[start:end] = _mm_f32(lhs[start:end], rhs[g]).to(lhs.dtype)
+        start = end
+    return out
 
 
 def ragged_transposed_matmul(a, b, group_sizes):

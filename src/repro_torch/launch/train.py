@@ -9,7 +9,8 @@ or one of the synchronous engines::
         --algo me-trpo --engine async --trajs 60
 
 ``--task lm``: the LM trainer, ``api.build(..., "train")`` on random
-tokens for ``--steps`` steps, for the dense and ssm families::
+tokens for ``--steps`` steps, for the dense and ssm families (the moe and
+hybrid families serve but do not train yet)::
 
     python -m repro_torch.launch.train --task lm --arch glm4-9b --reduced \\
         --steps 10
@@ -28,7 +29,8 @@ collectors::
     python -m repro_torch.launch.train --connect trainer-host:7447
 
 What is not ported exits with a message that names ROADMAP.md: ``--mesh``,
-and ``--task lm`` on the moe, hybrid, encdec and vlm archs.
+``--task lm`` on the moe and hybrid archs (whose train step is refused)
+and on the encdec and vlm archs (whose configs are).
 """
 from __future__ import annotations
 
@@ -159,14 +161,13 @@ def run_lm(args):
     from repro_torch.models.config import InputShape
     from repro_torch.optim.optimizers import adam
 
-    try:
-        cfg = get_config(args.arch, reduced=args.reduced)
-        LM._block_kind(cfg)
-    except NotImplementedError as err:
-        raise SystemExit(f"--task lm --arch {args.arch}: {err}") from None
     dev = resolve_device(args.device)
     shape = InputShape("cli", args.seq, args.batch, "train")
-    bundle = api.build(cfg, shape, device=dev)
+    try:
+        cfg = get_config(args.arch, reduced=args.reduced)
+        bundle = api.build(cfg, shape, device=dev)
+    except NotImplementedError as err:
+        raise SystemExit(f"--task lm --arch {args.arch}: {err}") from None
     params = LM.init_params(cfg, args.seed, device=dev)
     opt_state = adam(cfg.lr).init(LM.trainable(params))
     gen = torch.Generator(device=dev).manual_seed(args.seed)

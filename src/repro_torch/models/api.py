@@ -6,10 +6,11 @@ that counts the distinct input shapes it has seen (``shape_count``). That
 keeps the serving invariants assertable: one decode shape forever and at
 most one prefill shape per prompt bucket.
 
-``build`` makes the lock-step prefill and decode steps (the dense and ssm
-families, fp or int8 KV caches) and the microbatched train step;
+``build`` makes the lock-step prefill and decode steps (the dense, ssm,
+moe and hybrid families; fp or int8 KV caches on dense and moe) and the
+microbatched train step (dense and ssm);
 ``build_serve_prefill`` / ``build_serve_decode`` make the slot-pool steps
-of the continuous-batching serve tier (the dense family);
+of the continuous-batching serve tier (the dense and moe families);
 ``as_predict_fn`` pins a world model to the MBRL predict contract.
 """
 from __future__ import annotations
@@ -81,30 +82,34 @@ def grow_cache(cache, to_len: int):
 
 def build(cfg: ModelConfig, shape: InputShape, *, device=None,
           kv_int8: bool = False, attn_impl: str | None = None,
-          ssd_impl: str | None = None) -> StepBundle:
+          ssd_impl: str | None = None,
+          gmm_impl: str | None = None) -> StepBundle:
     """The step of ``shape.kind``:
 
     * ``"prefill"``: ``bundle.fn(params, batch) -> (logits, cache)``, batch
       ``{"tokens": (B, S)}``, the cache laid out for ``shape.seq_len``
-      tokens (int8 when ``kv_int8``, dense family). ``attn_impl="ref"`` /
-      ``ssd_impl="ref"`` run the plain attention / scan instead of the
-      kernels (for the on-card comparison only);
+      tokens (int8 when ``kv_int8``, dense and moe families).
+      ``attn_impl="ref"`` / ``ssd_impl="ref"`` / ``gmm_impl="ref"`` run the
+      plain attention / scan / expert products instead of the kernels (for
+      the on-card comparison only);
     * ``"decode"``: ``bundle.fn(params, cache, token) -> (logits, cache')``
       for one token ``(B, 1)``; the cache is updated in place, where the
-      reference donates it to its jit;
+      reference donates it to its jit (``gmm_impl`` as for prefill);
     * ``"train"``: ``bundle.fn(params, opt_state, batch) -> (params,
       opt_state, {"loss", "gnorm"})`` with Adam at ``cfg.lr`` (``opt_state
       = adam(cfg.lr).init(LM.trainable(params))``) over
       ``pick_microbatches`` microbatches, through the plain attention and
-      scan (``LM.make_train_step``)."""
+      scan (``LM.make_train_step``); the moe and hybrid families raise
+      (ROADMAP.md)."""
     dev = resolve_device(device)
     nm = 1
     quant = kv_int8 and cfg.family in ("dense", "vlm", "moe")
     if shape.kind == "prefill":
         fn = LM.make_prefill(cfg, shape.seq_len, kv_int8=quant,
-                             attn_impl=attn_impl, ssd_impl=ssd_impl)
+                             attn_impl=attn_impl, ssd_impl=ssd_impl,
+                             gmm_impl=gmm_impl)
     elif shape.kind == "decode":
-        fn = LM.make_decode(cfg)
+        fn = LM.make_decode(cfg, gmm_impl=gmm_impl)
     elif shape.kind == "train":
         nm = pick_microbatches(cfg, shape)
         fn = LM.make_train_step(cfg, adam(cfg.lr), nm)

@@ -1,18 +1,23 @@
-"""Decoder LM: the port of ``repro/models/lm.py`` for the dense and ssm
-families.
+"""Decoder LM: the port of ``repro/models/lm.py`` for the dense, ssm, moe
+and hybrid families.
 
 Parameters live in :class:`LM`, an ``nn.Module`` tree of frozen tensors::
 
   embed.{table, head, ln_f}
-  layers.<i>.attn.{ln, wq, wk, wv, wo[, q_norm, k_norm]}     (dense)
+  layers.<i>.attn.{ln, wq, wk, wv, wo[, q_norm, k_norm]}     (dense, moe)
   layers.<i>.mlp.{ln, w1, w2[, w3]}                          (dense)
-  layers.<i>.mamba.{ln, wz, wx, wbc, wdt, conv_x, ...}       (ssm)
+  layers.<i>.moe.{ln, router, we1, we3, we2}                 (moe)
+  layers.<i>.mamba.{ln, wz, wx, wbc, wdt, conv_x, ...}       (ssm, hybrid)
+  shared.{attn, mlp}                                         (hybrid)
 
 which is the reference's pytree with its stacked ``layers`` axis unstacked
 into a ``ModuleList`` (``testing.parity`` converts one into the other).
 The forward functions are plain functions of that tree; the layer stack
-is a Python loop where the reference scans. The moe and hybrid families
-are not ported yet and raise.
+is a Python loop where the reference scans. The hybrid family (Zamba2)
+runs one shared attention + MLP block, one set of weights, before mamba
+layer i whenever ``i % attn_every == 0``: ``n_full`` groups of
+``attn_every`` mamba layers and a tail group, each invocation with its own
+KV cache. The moe family's FFN is ``models/moe.py``.
 
 Two cache layouts:
 
@@ -20,20 +25,25 @@ Two cache layouts:
   hd)``, ``pos`` ``(n_slots, S)`` (-1 empty) and ``index`` ``(n_slots,)``;
 * the lock-step cache of ``init_cache`` / ``make_prefill`` /
   ``make_decode``, with one scalar ``index`` for the whole batch, which
-  starts and stops together. Dense: ``k``/``v`` ``(L, B, S, KV, hd)``
-  (int8 with f32 ``k_scale``/``v_scale`` ``(L, B, S, KV, 1)`` when
+  starts and stops together. Dense and moe: ``k``/``v`` ``(L, B, S, KV,
+  hd)`` (int8 with f32 ``k_scale``/``v_scale`` ``(L, B, S, KV, 1)`` when
   quantised) and ``pos`` ``(S,)``, in the layout ``layers.decode_mode``
   picks (kind "A", or the sliding window's ring, kind "W"). Ssm: ``ssm``
   ``(L, B, H, P, N)`` f32, ``conv_x`` ``(L, B, W-1, d_inner)`` and
-  ``conv_bc`` ``(L, B, W-1, 2GN)``.
+  ``conv_bc`` ``(L, B, W-1, 2GN)``. Hybrid: the ssm cache and ``k``/``v``
+  ``(n_inv, B, S, KV, hd)`` over the shared block's invocations, with
+  ``pos``.
 
 Decode writes into a cache in place, where the reference donates it to a
-jit. ``make_train_step`` is the reference's microbatched step on one card;
-it trains by autograd of the plain attention and scan, the reference's own
-gradient route (its Pallas kernels have no ``custom_vjp``).
+jit. ``make_train_step`` is the reference's microbatched step on one card,
+for the dense and ssm families; it trains by autograd of the plain
+attention and scan, the reference's own gradient route (its Pallas kernels
+have no ``custom_vjp``). The moe and hybrid families serve and do not
+train yet (ROADMAP.md).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping
 
 import torch
@@ -42,6 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import Optimizer
@@ -96,18 +107,29 @@ class LM(Params):
 def _block_kind(cfg: ModelConfig) -> str:
     if cfg.family in ("dense", "vlm"):
         return "dense"
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: the moe family is not ported to repro_torch yet; "
-            "see ROADMAP.md, open items")
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family (the shared attention block of "
-            "zamba2_7b) is not ported to repro_torch yet; see ROADMAP.md, "
-            "open items")
-    if cfg.family == "ssm":
-        return "ssm"
+    if cfg.family in ("moe", "ssm", "hybrid"):
+        return cfg.family
     raise ValueError(cfg.family)
+
+
+def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The hybrid's shared block is a dense attention + MLP block."""
+    return dataclasses.replace(cfg, family="dense")
+
+
+def _hybrid_groups(cfg: ModelConfig):
+    """``(attn_every, n_full, tail)``: full groups of ``attn_every`` mamba
+    layers and the layers left over."""
+    k = cfg.attn_every
+    n_full = cfg.num_layers // k
+    return k, n_full, cfg.num_layers - n_full * k
+
+
+def n_shared_invocations(cfg: ModelConfig) -> int:
+    if cfg.family != "hybrid" or not cfg.attn_every:
+        return 0
+    _, n_full, tail = _hybrid_groups(cfg)
+    return n_full + (1 if tail else 0)
 
 
 def init_params(cfg: ModelConfig, seed: int, *, device=None) -> LM:
@@ -117,14 +139,23 @@ def init_params(cfg: ModelConfig, seed: int, *, device=None) -> LM:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     embed = L.init_embed(cfg, gen, dev)
-    if kind == "ssm":
+    if kind in ("ssm", "hybrid"):
         layers = [{"mamba": S.init_mamba(cfg, gen, dev)}
+                  for _ in range(cfg.num_layers)]
+    elif kind == "moe":
+        layers = [{"attn": L.init_attn(cfg, gen, dev),
+                   "moe": M.init_moe(cfg, gen, dev)}
                   for _ in range(cfg.num_layers)]
     else:
         layers = [{"attn": L.init_attn(cfg, gen, dev),
                    "mlp": L.init_mlp(cfg, gen, dev)}
                   for _ in range(cfg.num_layers)]
-    return LM(cfg, {"embed": embed, "layers": layers})
+    tree = {"embed": embed, "layers": layers}
+    if kind == "hybrid":
+        scfg = _shared_cfg(cfg)
+        tree["shared"] = {"attn": L.init_attn(scfg, gen, dev),
+                          "mlp": L.init_mlp(scfg, gen, dev)}
+    return LM(cfg, tree)
 
 
 # --------------------------------------------------------------------------
@@ -133,18 +164,26 @@ def init_params(cfg: ModelConfig, seed: int, *, device=None) -> LM:
 
 def stack_forward(cfg: ModelConfig, params: LM, x, positions, *,
                   collect_cache: bool = False, attn_impl: str | None = None,
-                  ssd_impl: str | None = None):
-    """Run the whole layer stack. Returns ``(h, cache_ys)``; cache_ys (when
-    ``collect_cache``, else ``()``):
+                  ssd_impl: str | None = None, gmm_impl: str | None = None):
+    """Run the whole layer stack. Returns ``(h, aux_loss_sum, cache_ys)``;
+    cache_ys (when ``collect_cache``, else ``()``):
 
-      dense: ``(k, v)`` stacked over layers, each ``(L, B, S, KV, hd)``;
-      ssm:   ``(ssm_state, tail_x, tail_bc)`` stacked over layers.
+      dense/moe: ``(k, v)`` stacked over layers, each ``(L, B, S, KV, hd)``;
+      ssm:       ``(ssm_state, tail_x, tail_bc)`` stacked over layers;
+      hybrid:    ``{ssm, conv_x, conv_bc, k, v}``, k/v stacked over the
+                 shared block's invocations.
 
-    (The reference's ``aux_loss_sum`` is always 0 for these families and is
-    not returned.) ``attn_impl`` / ``ssd_impl`` pick the attention and scan
-    routes (None: the kernels on CUDA tensors)."""
+    ``aux_loss_sum`` is the moe layers' load-balance loss summed (0 for the
+    other families). ``attn_impl`` / ``ssd_impl`` / ``gmm_impl`` pick the
+    attention, scan and expert-product routes (None: the kernels on CUDA
+    tensors)."""
     kind = _block_kind(cfg)
+    if kind == "hybrid":
+        return _hybrid_forward(cfg, params, x, positions,
+                               collect_cache=collect_cache,
+                               attn_impl=attn_impl, ssd_impl=ssd_impl)
     h = x
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ys = []
     for lp in params["layers"]:
         if kind == "ssm":
@@ -158,9 +197,44 @@ def stack_forward(cfg: ModelConfig, params: LM, x, positions, *,
         ys.append(y)
         if kind == "dense":
             h = L.mlp_forward(cfg, lp["mlp"], h)
+        elif kind == "moe":
+            h, layer_aux = M.moe_forward(cfg, lp["moe"], h,
+                                         gmm_impl=gmm_impl)
+            aux = aux + layer_aux
     if not collect_cache:
-        return h, ()
-    return h, tuple(torch.stack(t) for t in zip(*ys))
+        return h, aux, ()
+    return h, aux, tuple(torch.stack(t) for t in zip(*ys))
+
+
+def _hybrid_forward(cfg: ModelConfig, params: LM, x, positions, *,
+                    collect_cache: bool, attn_impl: str | None,
+                    ssd_impl: str | None):
+    """The hybrid stack: for each group, the shared block, then its mamba
+    layers (``attn_every`` of them; the tail group has the rest)."""
+    k = cfg.attn_every
+    scfg = _shared_cfg(cfg)
+    shared, layers = params["shared"], params["layers"]
+    h = x
+    kvs, states = [], []
+    for gi in range(n_shared_invocations(cfg)):
+        out = L.attn_forward(scfg, shared["attn"], h, positions,
+                             return_kv=collect_cache, attn_impl=attn_impl)
+        h, kv = out if collect_cache else (out, None)
+        kvs.append(kv)
+        h = L.mlp_forward(scfg, shared["mlp"], h)
+        for lp in layers[gi * k:(gi + 1) * k]:
+            out = S.mamba_forward(cfg, lp["mamba"], h,
+                                  return_state=collect_cache,
+                                  ssd_impl=ssd_impl)
+            h, st = out if collect_cache else (out, None)
+            states.append(st)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not collect_cache:
+        return h, aux, ()
+    st, tx, tbc = (torch.stack(t) for t in zip(*states))
+    kk, vv = (torch.stack(t) for t in zip(*kvs))
+    return h, aux, {"ssm": st, "conv_x": tx, "conv_bc": tbc, "k": kk,
+                    "v": vv}
 
 
 def embed_inputs(cfg: ModelConfig, params: LM, batch):
@@ -171,16 +245,16 @@ def embed_inputs(cfg: ModelConfig, params: LM, batch):
 def loss_forward(cfg: ModelConfig, params: LM, batch, *,
                  attn_impl: str | None = None, ssd_impl: str | None = None):
     """The stateless forward and its loss: ``(sum_loss, count, aux)`` as the
-    reference returns them (``aux`` is 0 for these families).
-    ``attn_impl`` / ``ssd_impl`` pick the routes as in ``stack_forward``.
-    The kernel routes are forward-only and raise if asked for a gradient;
-    with ``"ref"`` the loss is differentiable, as ``make_train_step`` uses
-    it."""
+    reference returns them (``aux`` is the moe load-balance loss, 0 for the
+    other families). The ``*_impl`` pick the routes as in
+    ``stack_forward``. The kernel routes are forward-only and raise if
+    asked for a gradient; with ``"ref"`` the loss is differentiable, as
+    ``make_train_step`` uses it."""
     x, positions = embed_inputs(cfg, params, batch)
-    h, _ = stack_forward(cfg, params, x, positions, attn_impl=attn_impl,
-                         ssd_impl=ssd_impl)
+    h, aux, _ = stack_forward(cfg, params, x, positions, attn_impl=attn_impl,
+                              ssd_impl=ssd_impl)
     s, c = L.lm_loss(cfg, params["embed"], h, batch["labels"])
-    return s, c, torch.zeros((), dtype=torch.float32, device=h.device)
+    return s, c, aux
 
 
 # --------------------------------------------------------------------------
@@ -242,7 +316,11 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     arrays), so ``params`` comes back as the same module. ``opt_state`` is
     ``opt.init(trainable(params))``."""
     if loss_fwd is None:
-        _block_kind(cfg)    # the moe and hybrid families raise here
+        if _block_kind(cfg) in ("moe", "hybrid"):
+            raise NotImplementedError(
+                f"{cfg.name}: training the {cfg.family} family is not "
+                "ported to repro_torch yet (its bf16 backward kernels come "
+                "with it); see ROADMAP.md, open items")
 
         def loss_fwd(p, b):
             return loss_forward(cfg, p, b, attn_impl="ref", ssd_impl="ref")
@@ -286,35 +364,42 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
 
 
 # --------------------------------------------------------------------------
-# lock-step cache, prefill and decode (the dense and ssm families)
+# lock-step cache, prefill and decode
 
 
 def init_cache(cfg: ModelConfig, global_batch: int, seq_len: int = 0, *,
                prefilled: bool = False, kv_int8: bool = False, device=None):
     """Empty lock-step cache (zeros, positions -1): the state before the
     first token, or, with ``prefilled``, a placeholder at ``index =
-    seq_len``. A dense cache holds ``decode_mode``'s ``s_cache`` slots for
-    ``seq_len`` tokens (int8 with f32 scales when ``kv_int8``); an ssm cache
-    has no sequence capacity and ignores ``seq_len`` and ``kv_int8``."""
+    seq_len``. A dense or moe cache holds ``decode_mode``'s ``s_cache``
+    slots for ``seq_len`` tokens (int8 with f32 scales when ``kv_int8``); an
+    ssm cache has no sequence capacity and ignores ``seq_len`` and
+    ``kv_int8``; a hybrid cache is the ssm cache and an fp KV cache over the
+    shared block's invocations (``kv_int8`` ignored, as the reference's
+    ``api.build`` ignores it there)."""
     kind = _block_kind(cfg)
     dev = resolve_device(device)
     B, nl = global_batch, cfg.num_layers
     dt = L.dtype_of(cfg)
     cache: Dict[str, Any] = {"index": torch.tensor(
         seq_len if prefilled else 0, dtype=torch.int32, device=dev)}
-    if kind == "dense":
+
+    def kv(n_layers, quant):
         s_c = L.decode_mode(cfg, B, seq_len)["s_cache"]
-        shape = (nl, B, s_c, cfg.num_kv_heads, cfg.hd)
-        kdt = torch.int8 if kv_int8 else dt
+        shape = (n_layers, B, s_c, cfg.num_kv_heads, cfg.hd)
+        kdt = torch.int8 if quant else dt
         cache["k"] = torch.zeros(shape, dtype=kdt, device=dev)
         cache["v"] = torch.zeros(shape, dtype=kdt, device=dev)
-        if kv_int8:
+        if quant:
             sshape = shape[:-1] + (1,)
             cache["k_scale"] = torch.zeros(sshape, dtype=torch.float32,
                                            device=dev)
             cache["v_scale"] = torch.zeros(sshape, dtype=torch.float32,
                                            device=dev)
         cache["pos"] = torch.full((s_c,), -1, dtype=torch.int32, device=dev)
+
+    if kind in ("dense", "moe"):
+        kv(nl, kv_int8)
         return cache
     H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     W, gn2 = cfg.ssm_conv - 1, 2 * cfg.ssm_groups * cfg.ssm_state
@@ -323,6 +408,8 @@ def init_cache(cfg: ModelConfig, global_batch: int, seq_len: int = 0, *,
     cache["conv_x"] = torch.zeros((nl, B, W, cfg.d_inner), dtype=dt,
                                   device=dev)
     cache["conv_bc"] = torch.zeros((nl, B, W, gn2), dtype=dt, device=dev)
+    if kind == "hybrid":
+        kv(n_shared_invocations(cfg), False)
     return cache
 
 
@@ -357,25 +444,27 @@ def _pack_kv(k, v, S_: int, mode):
 
 def make_prefill(cfg: ModelConfig, seq_len: int | None = None, *,
                  kv_int8: bool = False, attn_impl: str | None = None,
-                 ssd_impl: str | None = None):
+                 ssd_impl: str | None = None, gmm_impl: str | None = None):
     """Lock-step prefill: ``prefill(params, batch) -> (logits, cache)``,
     logits of the last token ``(B, V_pad)`` f32 and the cache of
-    ``init_cache``'s layout at ``index = S``. A dense cache is laid out for
+    ``init_cache``'s layout at ``index = S``. A KV cache is laid out for
     ``seq_len`` tokens (the prompt's length when None), quantised to int8
-    when ``kv_int8``. ``attn_impl`` / ``ssd_impl`` pick the routes (None:
-    the kernels on CUDA tensors; ``"ref"`` for the on-card comparison)."""
+    when ``kv_int8`` (dense and moe). ``attn_impl`` / ``ssd_impl`` /
+    ``gmm_impl`` pick the routes (None: the kernels on CUDA tensors;
+    ``"ref"`` for the on-card comparison)."""
     kind = _block_kind(cfg)
 
     def prefill(params: LM, batch):
         x, positions = embed_inputs(cfg, params, batch)
         B, S_ = x.shape[:2]
-        h, ys = stack_forward(cfg, params, x, positions, collect_cache=True,
-                              attn_impl=attn_impl, ssd_impl=ssd_impl)
+        h, _, ys = stack_forward(cfg, params, x, positions,
+                                 collect_cache=True, attn_impl=attn_impl,
+                                 ssd_impl=ssd_impl, gmm_impl=gmm_impl)
         logits = L.lm_logits_last(cfg, params["embed"], h[:, -1])
         cache: Dict[str, Any] = {"index": torch.tensor(
             S_, dtype=torch.int32, device=x.device)}
-        if kind == "dense":
-            mode = L.decode_mode(cfg, B, S_ if seq_len is None else seq_len)
+        mode = L.decode_mode(cfg, B, S_ if seq_len is None else seq_len)
+        if kind in ("dense", "moe"):
             k, v = ys
             if kv_int8:
                 (kq, ks), (vq, vs) = L.kv_quantize(k), L.kv_quantize(v)
@@ -386,6 +475,11 @@ def make_prefill(cfg: ModelConfig, seq_len: int | None = None, *,
             else:
                 cache["k"], cache["v"], cache["pos"] = _pack_kv(k, v, S_,
                                                                 mode)
+        elif kind == "hybrid":
+            cache.update(ssm=ys["ssm"], conv_x=ys["conv_x"],
+                         conv_bc=ys["conv_bc"])
+            cache["k"], cache["v"], cache["pos"] = _pack_kv(
+                ys["k"], ys["v"], S_, mode)
         else:
             cache["ssm"], cache["conv_x"], cache["conv_bc"] = ys
         return logits, cache
@@ -393,18 +487,30 @@ def make_prefill(cfg: ModelConfig, seq_len: int | None = None, *,
     return prefill
 
 
-def make_decode(cfg: ModelConfig):
+def _mamba_decode_into(cfg: ModelConfig, lp, h, cache, i: int):
+    """Mamba layer ``i``'s decode step, its states written into the cache
+    in place."""
+    h, st, tx, tbc = S.mamba_decode(cfg, lp["mamba"], h, cache["ssm"][i],
+                                    cache["conv_x"][i], cache["conv_bc"][i])
+    cache["ssm"][i].copy_(st)
+    cache["conv_x"][i].copy_(tx)
+    cache["conv_bc"][i].copy_(tbc)
+    return h
+
+
+def make_decode(cfg: ModelConfig, *, gmm_impl: str | None = None):
     """Lock-step decode: ``decode(params, cache, token) -> (logits,
-    cache')`` for ONE new token ``(B, 1)`` of every row. The states (dense:
-    k/v, their int8 scales and ``pos``) are written into ``cache``'s tensors
-    in place; ``cache'`` holds them and the advanced index. A dense cache's
-    layout is read off the cache itself."""
+    cache')`` for ONE new token ``(B, 1)`` of every row. The states (k/v,
+    their int8 scales and ``pos``; the ssm states) are written into
+    ``cache``'s tensors in place; ``cache'`` holds them and the advanced
+    index. A KV cache's layout is read off the cache itself. ``gmm_impl``
+    picks the moe experts' route as in ``stack_forward``."""
     kind = _block_kind(cfg)
 
     def decode(params: LM, cache, token):
         index = cache["index"]
         h = L.embed_tokens(cfg, params["embed"], token)       # (B, 1, d)
-        if kind == "dense":
+        if kind in ("dense", "moe"):
             k, v = cache["k"], cache["v"]
             mode = L.decode_mode(cfg, k.shape[1], k.shape[2] - 1)
             quant = "k_scale" in cache
@@ -414,15 +520,27 @@ def make_decode(cfg: ModelConfig):
                           else {})
                 h = L.attn_decode(cfg, lp["attn"], h, k[i], v[i],
                                   cache["pos"], index, mode, **scales)
-                h = L.mlp_forward(cfg, lp["mlp"], h)
+                if kind == "moe":
+                    h, _ = M.moe_forward(cfg, lp["moe"], h,
+                                         gmm_impl=gmm_impl)
+                else:
+                    h = L.mlp_forward(cfg, lp["mlp"], h)
+        elif kind == "hybrid":
+            k, v = cache["k"], cache["v"]
+            scfg = _shared_cfg(cfg)
+            mode = L.decode_mode(scfg, k.shape[1], k.shape[2] - 1)
+            shared, layers = params["shared"], params["layers"]
+            every = cfg.attn_every
+            for gi in range(n_shared_invocations(cfg)):
+                h = L.attn_decode(scfg, shared["attn"], h, k[gi], v[gi],
+                                  cache["pos"], index, mode)
+                h = L.mlp_forward(scfg, shared["mlp"], h)
+                for i in range(gi * every,
+                               min((gi + 1) * every, cfg.num_layers)):
+                    h = _mamba_decode_into(cfg, layers[i], h, cache, i)
         else:
             for i, lp in enumerate(params["layers"]):
-                h, st, tx, tbc = S.mamba_decode(
-                    cfg, lp["mamba"], h, cache["ssm"][i],
-                    cache["conv_x"][i], cache["conv_bc"][i])
-                cache["ssm"][i].copy_(st)
-                cache["conv_x"][i].copy_(tx)
-                cache["conv_bc"][i].copy_(tbc)
+                h = _mamba_decode_into(cfg, lp, h, cache, i)
         logits = L.lm_logits_last(cfg, params["embed"], h[:, 0])
         return logits, dict(cache, index=index + 1)
 
@@ -470,8 +588,8 @@ def make_prefill_slots(cfg: ModelConfig, seq_len: int, *,
 
     def prefill(params: LM, batch, prompt_len):
         x, positions = embed_inputs(cfg, params, batch)
-        h, (k, v) = stack_forward(cfg, params, x, positions,
-                                  collect_cache=True, attn_impl=attn_impl)
+        h, _, (k, v) = stack_forward(cfg, params, x, positions,
+                                     collect_cache=True, attn_impl=attn_impl)
         S = x.shape[1]
         last = torch.clamp(prompt_len.long() - 1, 0, S - 1)
         h_last = h[torch.arange(h.shape[0], device=h.device), last]
@@ -495,6 +613,7 @@ def make_decode_slots(cfg: ModelConfig, seq_len: int):
     are computed but never written, so admissions and retirements between
     calls never change a shape."""
     _slot_cache_len(cfg, seq_len)
+    kind = _block_kind(cfg)
 
     def decode(params: LM, cache, token, active):
         index = cache["index"]
@@ -504,7 +623,10 @@ def make_decode_slots(cfg: ModelConfig, seq_len: int):
             h, _, _, pos = L.attn_decode_slots(
                 cfg, lp["attn"], h, cache["k"][i], cache["v"][i], pos, index,
                 active)
-            h = L.mlp_forward(cfg, lp["mlp"], h)
+            if kind == "moe":
+                h, _ = M.moe_forward(cfg, lp["moe"], h)
+            else:
+                h = L.mlp_forward(cfg, lp["mlp"], h)
         logits = L.lm_logits_last(cfg, params["embed"], h[:, 0])
         new_cache = dict(cache, pos=pos,
                          index=index + active.to(index.dtype))

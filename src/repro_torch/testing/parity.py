@@ -5,7 +5,8 @@ arrays (``np.asarray`` on the JAX side), and hand it here. Two layouts:
 
 * the LM (``state_from_jax``): the stacked ``layers`` axis is unstacked
   into the port's per-layer ``ModuleList``, so ``layers/attn/wq[i]``
-  becomes ``layers.i.attn.wq``;
+  becomes ``layers.i.attn.wq`` (and a moe layer's ``layers/moe/we1[i]``
+  ``layers.i.moe.we1``); the hybrid's ``shared`` block keeps its tree;
 * the transformer world model (``world_model_from_jax``): a
   ``WorldModelDynamics``' LM parameters, normaliser and Adam state, the
   moments keyed by the port's parameter names;
@@ -49,10 +50,13 @@ def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, Any]):
 
 def state_from_jax(tree: Mapping[str, Any], device="cpu"
                    ) -> Dict[str, torch.Tensor]:
-    """``{"embed": ..., "layers": <stacked>}`` numpy tree -> the port's
-    ``LM.state_dict()`` layout (``embed.table``, ``layers.0.attn.wq``...)."""
+    """``{"embed": ..., "layers": <stacked>[, "shared": ...]}`` numpy tree
+    -> the port's ``LM.state_dict()`` layout (``embed.table``,
+    ``layers.0.attn.wq``, ``shared.attn.wq``...)."""
     flat: Dict[str, Any] = {}
     _flatten(tree["embed"], "embed.", flat)
+    if "shared" in tree:
+        _flatten(tree["shared"], "shared.", flat)
     stacked: Dict[str, Any] = {}
     _flatten(tree["layers"], "", stacked)
     n_layers = {np.asarray(v).shape[0] for v in stacked.values()}
@@ -61,7 +65,7 @@ def state_from_jax(tree: Mapping[str, Any], device="cpu"
     for i in range(n_layers.pop()):
         for key, val in stacked.items():
             flat[f"layers.{i}.{key}"] = np.asarray(val)[i]
-    extra = set(tree) - {"embed", "layers"}
+    extra = set(tree) - {"embed", "layers", "shared"}
     if extra:
         raise ValueError(f"no port for parameter groups {sorted(extra)}")
     return {k: to_tensor(v, device) for k, v in flat.items()}

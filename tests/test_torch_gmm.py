@@ -244,6 +244,63 @@ def test_ragged_function_backward_raises():
                                    **TOL)
 
 
+BF16_TOL = dict(atol=5e-2, rtol=5e-2)   # the reference's bf16 tolerance
+
+
+def _bf16(x):
+    """The same bf16 values on both sides: a numpy array rounded by JAX."""
+    j = jnp.asarray(x, jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j).view(np.uint16).copy()).view(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_bf16_ragged_plain_and_looped_match_the_oracle(case):
+    """The bf16 ragged product, plain (the gather) and looped over the
+    groups, against the reference's oracle in bf16 (f32 sums, one rounding
+    to bf16) at its bf16 tolerance; in f32 the looped form equals the
+    gather form."""
+    G, M, K, N, sizes = case
+    rng = np.random.default_rng(27)
+    a_np, b_np = _rand(rng, (M, K)), _rand(rng, (G, K, N), K ** -0.5)
+    (ja, ta), (jb, tb) = _bf16(a_np), _bf16(b_np)
+    gs = np.asarray(sizes, np.int32)
+    want = jgmm_ref.grouped_matmul(ja, jb, jnp.asarray(gs))
+    assert want.dtype == jnp.bfloat16
+    for got in (gmm_ref.grouped_matmul(ta, tb, torch.from_numpy(gs)),
+                gmm_ref.grouped_matmul_looped(ta, tb, torch.from_numpy(gs)),
+                gmm_ref.grouped_matmul_looped(ta, tb, sizes),
+                gmm_ops.grouped_matmul(ta, tb, torch.from_numpy(gs))):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **BF16_TOL)
+    np.testing.assert_allclose(
+        gmm_ref.grouped_matmul_looped(_t(a_np), _t(b_np), sizes).numpy(),
+        gmm_ref.grouped_matmul(_t(a_np), _t(b_np),
+                               torch.from_numpy(gs)).numpy(), **TOL)
+
+
+def test_bf16_kernel_route_is_forward_only(no_graph_kernels):
+    """The bf16 kernel route's wiring on the CPU, its product stood in by
+    the plain one: one launch on its own counter, none on the f32 route's,
+    and a gradient through it raises with a pointer to the roadmap; the
+    plain route differentiates."""
+    rng = np.random.default_rng(28)
+    _, lhs = _bf16(_rand(rng, (9, 4)))
+    _, rhs = _bf16(_rand(rng, (3, 4, 2)))
+    gs = torch.tensor([4, 0, 5], dtype=torch.int32)
+    before = _launch_counts(), gmm_ops.ragged_bf16_launches
+    lhs.requires_grad_(True)
+    out = gmm_ops.grouped_matmul(lhs, rhs, gs, impl="cuda")
+    assert out.dtype == torch.bfloat16
+    assert (_launch_counts(), gmm_ops.ragged_bf16_launches) == (
+        before[0], before[1] + 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out.float().sum().backward()
+    gmm_ops.grouped_matmul(lhs, rhs, gs, impl="ref").float().sum().backward()
+    assert lhs.grad is not None and lhs.grad.dtype == torch.bfloat16
+
+
 def test_group_sizes_of_counts_without_bincount():
     idx = torch.tensor([2, 0, 2, 4, 2])
     assert gmm_ref.group_sizes_of(idx, 5).tolist() == [1, 0, 3, 0, 1]
@@ -553,6 +610,32 @@ def test_ragged_second_order_gradient_on_the_kernel_route(
             step, x, w, c1, c2)
     got = _torch_second_order(
         lambda a, b: gmm_ops.grouped_matmul(a, b, _t(gs), impl="cuda"),
+        step, x, w, c1, c2)
+    for g, wa in zip(got, want):
+        assert g.dtype == torch.float64
+        _close_to_scale(g.numpy(), np.asarray(wa))
+
+
+@pytest.mark.parametrize("step", ["x", "w"])
+@pytest.mark.parametrize("case", SECOND_ORDER_RAGGED,
+                         ids=["empty", "one_owns_all", "g1", "straddle3"])
+def test_looped_plain_product_differentiates_to_second_order(case, step):
+    """``ref.grouped_matmul_looped``, the plain ragged route on the card,
+    which the kernel route's gradients are held to there: through an
+    inner step against ``jax.grad`` of ``jax.grad`` of the reference's
+    ``ref`` route, in float64, at 1e-5 of the gradient's scale."""
+    G, M, Kd, N, sizes = case
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((M, Kd)) * 0.5
+    w = rng.standard_normal((G, Kd, N)) * 0.5
+    c1, c2 = rng.standard_normal((M, N)), rng.standard_normal((M, N))
+    gs = np.asarray(sizes, np.int32)
+    with jax.enable_x64(True):
+        want = _jax_second_order(
+            lambda a, b: jgmm_ref.grouped_matmul(a, b, jnp.asarray(gs)),
+            step, x, w, c1, c2)
+    got = _torch_second_order(
+        lambda a, b: gmm_ref.grouped_matmul_looped(a, b, _t(gs)),
         step, x, w, c1, c2)
     for g, wa in zip(got, want):
         assert g.dtype == torch.float64

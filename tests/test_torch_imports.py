@@ -56,6 +56,11 @@ SLICE8 = ["net/__init__.py", "net/frame.py", "net/control.py",
 # models/lm.py, models/api.py, kernels/flash_attention/, optim/,
 # configs/registry.py, testing/parity.py and launch/train.py)
 SLICE9 = ["data/__init__.py", "data/synthetic.py", "mbrl/wm_dynamics.py"]
+# the moe and hybrid slice (it extends kernels/gmm/, models/lm.py,
+# models/api.py, configs/registry.py, testing/parity.py and launch/train.py)
+SLICE10 = ["models/moe.py", "configs/mixtral_8x7b.py",
+           "configs/moonshot_v1_16b_a3b.py", "configs/qwen3_moe_235b_a22b.py",
+           "configs/zamba2_7b.py"]
 EXAMPLES = ["torch_quickstart.py", "torch_pr2_arm.py",
             "torch_async_vs_sync.py", "torch_train_world_model.py",
             "torch_wm_imagination.py", "torch_serve_world_model.py"]
@@ -78,7 +83,7 @@ def test_no_jax_or_reference_import(path):
 
 
 @pytest.mark.parametrize("module", SLICE2 + SLICE3 + SLICE4 + SLICE5
-                         + SLICE6 + SLICE8 + SLICE9)
+                         + SLICE6 + SLICE8 + SLICE9 + SLICE10)
 def test_slice_module_is_scanned(module):
     assert PORT / module in FILES
 

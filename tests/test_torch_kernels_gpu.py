@@ -38,6 +38,7 @@ ATTN_CASES = [
     (1, 100, 100, 32, 2, 128, True, 0),   # GQA G=16, S not a tile multiple
     (4, 52, 52, 4, 4, 32, True, 0),       # head dim 32: the world model
     (3, 33, 40, 4, 2, 24, True, 16),      # head dim 24, in the D = 32 build
+    (4, 256, 256, 32, 32, 112, True, 0),  # Zamba2-7B's, in the D = 128 build
 ]
 
 
@@ -416,6 +417,92 @@ def test_gmm_ragged_function_gradients_match_ref_autograd(card):
         _gmm_close(got, want)
 
 
+# bf16 kernel vs the looped plain product, both f32 sums rounded once to
+# bf16: at most the other bf16 neighbour, one ulp (2^-7) of the output's
+# scale
+GMM_BF16_TOL = 2.0 ** -7
+# the MoE's products, cut in rows: Moonlight's decode (48 rows over 64
+# experts, most empty) and a prefill slice, Mixtral's shape over 8 experts
+GMM_BF16_MOE_CASES = [
+    (64, 48, 2048, 1408, None),
+    (64, 384, 1408, 2048, None),
+    (8, 256, 4096, 1024, None),
+]
+
+
+def _bf16_case(rng, card, G, M, K, N, sizes):
+    if sizes is None:      # top-k routing: each row's expert drawn
+        sizes = np.bincount(rng.integers(0, G, M), minlength=G)
+    lhs = _randn(rng, (M, K), card).bfloat16()
+    rhs = (_randn(rng, (G, K, N), card) * K ** -0.5).bfloat16()
+    return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GMM_RAGGED_CASES + GMM_BF16_MOE_CASES)
+@pytest.mark.parametrize("trans", [False, True])
+def test_gmm_ragged_bf16_matches_the_looped_plain_product(card, case, trans):
+    """The bf16 route against ``ref.grouped_matmul_looped`` (and the gather
+    form where it is small), rhs given as stored or as a transposed view,
+    each product one counted launch of its own counter."""
+    rng = np.random.default_rng(21)
+    lhs, rhs, gs = _bf16_case(rng, card, *case)
+    if trans:
+        rhs = rhs.transpose(1, 2).contiguous().transpose(1, 2)
+    before = (gmm_ops.ragged_bf16_launches, gmm_ops.ragged_launches)
+    got = gmm_ops.grouped_matmul(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert (gmm_ops.ragged_bf16_launches, gmm_ops.ragged_launches) == (
+        before[0] + 1, before[1])
+    assert got.dtype == torch.bfloat16 and got.shape == (lhs.shape[0],
+                                                         rhs.shape[2])
+    want = gmm_ref.grouped_matmul_looped(lhs, rhs, gs)
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= \
+        GMM_BF16_TOL * scale
+    if lhs.shape[0] * lhs.shape[1] * rhs.shape[2] <= 2 ** 24:
+        gather = gmm_ref.grouped_matmul(lhs, rhs, gs)
+        assert (got.float() - gather.float()).abs().max().item() <= \
+            GMM_BF16_TOL * scale
+
+
+@pytest.mark.gpu
+def test_gmm_ragged_bf16_rows_past_the_groups_are_zero(card):
+    rng = np.random.default_rng(22)
+    lhs, rhs, _ = _bf16_case(rng, card, 3, 100, 64, 40, (10, 20, 30))
+    offs = torch.tensor([0, 10, 30, 60], dtype=torch.int32, device=card)
+    got = gmm_cuda.gmm_ragged(lhs, rhs, offs)
+    torch.cuda.synchronize()
+    assert not bool(got[60:].any())
+    want = gmm_ref.grouped_matmul_looped(lhs[:60], rhs, (10, 20, 30))
+    assert (got[:60].float() - want.float()).abs().max().item() <= \
+        GMM_BF16_TOL * max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.gpu
+def test_gmm_ragged_bf16_route_is_forward_only_and_refuses(card):
+    """A gradient through the bf16 route raises and points at ROADMAP;
+    mixed dtypes and a dtype the kernel does not take raise, and no plain
+    product runs in its place."""
+    rng = np.random.default_rng(23)
+    lhs, rhs, gs = _bf16_case(rng, card, 3, 64, 32, 16, (20, 0, 44))
+    lhs.requires_grad_(True)
+    out = gmm_ops.grouped_matmul(lhs, rhs, gs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out.float().sum().backward()
+    before = (gmm_ops.ragged_bf16_launches, gmm_ops.ragged_launches)
+    offs = gmm_ref.group_offsets(gs)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gmm_cuda.gmm_ragged(lhs.detach(), rhs.float(), offs)
+    with pytest.raises(ValueError, match="float32"):
+        gmm_cuda.gmm_ragged(lhs.detach().float(), rhs, offs)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gmm_cuda.gmm_ragged(lhs.detach().half(), rhs.half(), offs)
+    with pytest.raises(ValueError, match="float32"):
+        gmm_cuda.gmm_ragged_dw(lhs.detach(), lhs.detach(), offs)
+    assert (gmm_ops.ragged_bf16_launches, gmm_ops.ragged_launches) == before
+
+
 def _ragged_counts():
     return (gmm_ops.ragged_launches, gmm_ops.ragged_bwd_launches,
             gmm_ops.ragged_dw_launches)
@@ -711,6 +798,7 @@ SSD_CASES = [
     (1, 100, 8, 16, 32, 2, 32, torch.bfloat16),
     (1, 20, 4, 16, 8, 1, 32, torch.bfloat16),
     (1, 50, 4, 20, 24, 1, 32, torch.bfloat16),
+    (4, 256, 112, 64, 64, 1, 128, torch.bfloat16),   # Zamba2-7B's prefill
 ]
 
 

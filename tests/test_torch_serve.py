@@ -295,11 +295,14 @@ def test_serve_rejects_cache_layouts_it_does_not_support(cfgs):
     with pytest.raises(ValueError, match="attention KV cache"):
         api.build_serve_decode(dataclasses.replace(tcfg, family="ssm"), 2,
                                32, device=CPU)
+    with pytest.raises(ValueError, match="attention KV cache"):
+        api.build_serve_prefill(get_config("zamba2-7b", reduced=True), 1,
+                                16, device=CPU)
     with pytest.raises(ValueError, match="sliding-window"):
         api.build_serve_prefill(dataclasses.replace(tcfg, attn_window=8), 1,
                                 16, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mixtral-8x7b")
+        get_config("seamless-m4t-medium")
 
 
 def test_cpu_serving_never_launches_the_kernel(cfgs, v1, monkeypatch):

@@ -266,23 +266,19 @@ def test_bf16_prefill_and_decode_match_jax(mesh1):
 
 
 def test_unported_branches_raise_with_a_roadmap_pointer(f32):
-    """The hybrid and moe families are not ported: their parameters, their
-    lock-step programs and their train step raise (the dense lock-step
-    programs and the train step of the dense and ssm families are ported,
-    and held against the reference in ``test_torch_lockstep.py`` and
-    ``test_torch_lm_train.py``)."""
+    """What is not ported raises with a pointer to the roadmap: the train
+    step of the moe and hybrid families (they serve, and are held against
+    the reference in ``test_torch_moe.py`` and ``test_torch_hybrid.py``;
+    the dense and ssm train steps in ``test_torch_lm_train.py``), and the
+    configs of the encoder-decoder and vision archs."""
     tcfg = f32[0][1]
     glm = get_config("glm4-9b", reduced=True)
     hybrid = dataclasses.replace(tcfg, family="hybrid", attn_every=2)
     moe = dataclasses.replace(glm, family="moe", num_experts=4, top_k=2)
     for call in (
-            lambda: get_config("zamba2_7b"),
-            lambda: LM.init_params(hybrid, 0, device=CPU),
-            lambda: LM.init_cache(hybrid, B, device=CPU),
-            lambda: LM.make_prefill(hybrid),
-            lambda: LM.make_decode(moe),
-            lambda: LM.init_cache(moe, B, 8, device=CPU),
-            lambda: api.build(hybrid, InputShape("d", 8, B, "decode"),
+            lambda: get_config("seamless-m4t-medium"),
+            lambda: get_config("phi3_vision_4_2b"),
+            lambda: api.build(hybrid, InputShape("t", 8, B, "train"),
                               device=CPU),
             lambda: api.build(moe, InputShape("t", 8, B, "train"),
                               device=CPU)):
