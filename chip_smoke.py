@@ -8,7 +8,10 @@ Phases, each printing one JSON line:
 1. ``device`` / ``build``: the card, then every kernel built from the
    sources in this checkout (one ``nvcc`` per source, all at once), with
    the tensor-core (``HMMA``) instructions of each library counted by
-   ``cuobjdump -sass``; the phase fails if any of the four has none.
+   ``cuobjdump -sass``, and in ``gmm.cu``'s also the warpgroup products
+   (``HGMMA``) and the TMA loads (``UTMALDG``) of its bf16 route; the
+   phase fails if any of the four has no ``HMMA`` or ``gmm.cu`` no
+   ``HGMMA`` or ``UTMALDG``.
 2. ``kernel_check``: the flash-attention kernel against its plain PyTorch
    version on the card at the serving path's shapes, at the world
    model's head dims (32, and 24 in the D = 32 build), at Zamba2-7B's
@@ -200,17 +203,30 @@ Phases, each printing one JSON line:
    route against the looped plain product (``ref.grouped_matmul_looped``)
    at the dropless MoE's shapes (Moonlight-16B-A3B's decode and prefill,
    Mixtral-8x7B's prefill, up and down products) and at the edge shapes,
-   within ``GMM_BF16_TOL`` (one bf16 ulp), with device times of the
-   kernel, the plain loop and ``torch._grouped_mm`` in bf16, and the
-   bound. ``moe_lockstep``: the
+   within ``GMM_BF16_TOL`` (one bf16 ulp), with the ``route`` its launch
+   took (``cuda.py``'s counts by route), which must be the one
+   ``plan_ragged_bf16`` names (the six MoE rows must take the TMA and
+   ``wgmma`` one), device times of the kernel, of the earlier ``mma.sync``
+   route (``gmm_ragged_bf16``) forced at the same shape (``ms_mma_sync``, held to the same
+   tolerance), of every tile of the TMA route (``tile_ms``), the plain
+   loop and ``torch._grouped_mm`` in bf16, and the bound.
+   ``moe_lockstep``: the
    full 48-layer Moonlight-16B-A3B in bf16 in lock step (batch 8, 64-token
    prompts, 16 decodes, fp and int8 caches): 48 flash and 144 bf16
-   ``gmm_ragged`` launches a prefill, 144 of the latter a decode; then at
+   ``gmm_ragged`` launches a prefill, 144 of the latter a decode, all on
+   the ``wgmma`` route, and ``moe_tick_profile``: three more decode ticks
+   under ``torch.profiler``, their device time and the bf16
+   ``gmm_ragged`` kernels' part by kernel name, none ``mma.sync``; then at
    a 2-layer cut, the kernels against the plain experts (bf16) and against
    every plain route (f32) within ``LOGITS_ATOL``, and every plain route in
-   bf16 reported with the tokens rerouted at near-ties. ``moe_serve``:
+   bf16 reported with the tokens rerouted at near-ties. Where the bf16
+   experts' run reroutes a token (an ulp of the kernel's output tipping a
+   near-tie), the held comparison replays the kernel run's expert choices
+   into the plain run; the unreplayed error and the rerouted tokens are
+   reported beside it. ``moe_serve``:
    ``serve``'s run on Moonlight at 16 of its 48 layers, 3 bf16
-   ``gmm_ragged`` launches a layer in every prefill and decode tick.
+   ``gmm_ragged`` launches a layer in every prefill and decode tick, all
+   on the ``wgmma`` route.
    ``hybrid_lockstep``: the full 81-layer Zamba2-7B in bf16 in lock step
    (batch 4, 256-token prompts, 16 decodes): 14 flash (head dim 112, the
    128 build) and 81 ``ssd_chunked`` launches a prefill, none in decode;
@@ -226,7 +242,8 @@ Phases, each printing one JSON line:
    its ``hybrid_lockstep`` launches and its times at Zamba2-7B's prefill
    (``hybrid_path``);
    ``gmm_ragged_bf16``, the bf16 route on its own, its ``moe_lockstep``
-   and ``moe_serve`` launches and the times of its other MoE shapes.
+   and ``moe_serve`` launches, its planned route (``kernel_route``) and
+   ``mma.sync`` time beside its own, and both at its other MoE shapes.
 
 Each kernel's launches are counted from 0 just before the phase that
 drives its path (``serve``, ``model_learn``, ``assigned_predict``,
@@ -3500,13 +3517,50 @@ def routed_sizes(gen, experts: int, tokens: int, top_k: int) -> list:
     return torch.bincount(picks.reshape(-1), minlength=experts).tolist()
 
 
+# the bf16 gmm_ragged kernels by route: gmm.cu's TMA and wgmma kernel, and
+# the earlier mma.sync one (neither name is a part of the other)
+BF16_GMM_KERNELS = (("tma_wgmma", "gmm_ragged_bf16_wgmma_tc"),
+                    ("mma_sync", "gmm_ragged_bf16_tc"))
+
+
+def bf16_gmm_by_route(kernels) -> dict:
+    """The bf16 ``gmm_ragged`` kernels among profiler events, by route: how
+    many ran and their device ms."""
+    out = {route: {"kernels": 0, "ms": 0.0} for route, _ in BF16_GMM_KERNELS}
+    for e in kernels:
+        for route, fn in BF16_GMM_KERNELS:
+            if fn in e.name:
+                out[route]["kernels"] += 1
+                out[route]["ms"] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def launched_route(gmm_cuda, fn) -> str:
+    """The route of the one bf16 ``gmm_ragged`` launch that ``fn()``
+    makes, from ``cuda.py``'s counts by route."""
+    before = (gmm_cuda.bf16_wgmma_launches, gmm_cuda.bf16_mma_sync_launches)
+    fn()
+    ran = (gmm_cuda.bf16_wgmma_launches - before[0],
+           gmm_cuda.bf16_mma_sync_launches - before[1])
+    routes = {(1, 0): gmm_cuda.ROUTE_WGMMA, (0, 1): gmm_cuda.ROUTE_MMA_SYNC}
+    if ran not in routes:
+        raise RuntimeError(f"gmm_ragged bf16: one call made (wgmma, "
+                           f"mma.sync) launches {ran}")
+    return routes[ran]
+
+
 def check_moe_gmm(gmm_cuda, gmm_ref) -> dict:
     """``gmm_ragged``'s bf16 route at the MoE's shapes and at the edge
     shapes, each against ``ref.grouped_matmul_looped`` within
-    ``GMM_BF16_TOL`` of the output's scale, with device times of the
-    kernel, the plain loop and ``torch._grouped_mm`` in bf16, and the
-    least time (bf16 tensor-core work or the bytes: the rows, the weights
-    of the experts used, the output)."""
+    ``GMM_BF16_TOL`` of the output's scale, on the route
+    ``plan_ragged_bf16`` names (the MoE's rows must take the TMA and
+    ``wgmma`` one; the route a row reports is the kernel that
+    ``gmm_ragged`` launched, by ``cuda.py``'s counts by route), with device times of the kernel, of the
+    ``mma.sync`` route forced through ``cuda._gmm_ragged_bf16`` at the same
+    shape, of every tile of the TMA route at the MoE's shapes (each held
+    to the same tolerance), of the plain loop and of ``torch._grouped_mm``
+    in bf16, and the least time (bf16 tensor-core work or the bytes: the
+    rows, the weights of the experts used, the output)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     cases = [(name, G, None, T, k, K, N)
              for name, G, T, k, K, N in MOE_GMM_CASES]
@@ -3527,32 +3581,63 @@ def check_moe_gmm(gmm_cuda, gmm_ref) -> dict:
         offsets = gmm_ref.group_offsets(gs)
         ends = offsets[1:].contiguous()
 
+        plan = gmm_cuda.plan_ragged_bf16(M, N, K, G)
+        if not name.startswith("edge") and plan.route != \
+                gmm_cuda.ROUTE_WGMMA:
+            raise RuntimeError(f"gmm_ragged bf16 {name}: planned route "
+                               f"{plan.route}, not {gmm_cuda.ROUTE_WGMMA}")
+
         def kernel():
             return gmm_cuda.gmm_ragged(lhs, rhs, offsets)
 
+        def on_plan(p):
+            return lambda: gmm_cuda._gmm_ragged_bf16(lhs, rhs, offsets, p)
+
         def plain():
             return gmm_ref.grouped_matmul_looped(lhs, rhs, sizes)
-        got = kernel()
-        torch.cuda.synchronize()
         want = plain()
-        err, tol = _scaled_err(got, want, GMM_BF16_TOL)
-        if got.dtype != torch.bfloat16 or not err <= tol:
-            raise RuntimeError(f"gmm_ragged bf16 {name}: {got.dtype}, max "
-                               f"abs err {err} > {tol}")
+        mma_plan = gmm_cuda._bf16_mma_sync_plan(M, N, K)
+        tiles = {} if name.startswith("edge") else {
+            f"{bm}x{bn}x{st}": gmm_cuda._bf16_tma_plan(M, N, G, bm, bn, st)
+            for bm, bn, st in gmm_cuda.BF16_TILES}
+        errs = {}
+        for what, fn in [("planned", kernel),
+                         ("mma_sync", on_plan(mma_plan))] + [
+                             (t, on_plan(p)) for t, p in tiles.items()]:
+            got = fn()
+            torch.cuda.synchronize()
+            errs[what], tol = _scaled_err(got, want, GMM_BF16_TOL)
+            if got.dtype != torch.bfloat16 or not errs[what] <= tol:
+                raise RuntimeError(f"gmm_ragged bf16 {name} ({what}): "
+                                   f"{got.dtype}, max abs err "
+                                   f"{errs[what]} > {tol}")
+        route = launched_route(gmm_cuda, kernel)
+        if route != plan.route:
+            raise RuntimeError(f"gmm_ragged bf16 {name}: launched the "
+                               f"{route} kernel, planned {plan.route}")
+        err = errs["planned"]
         used = sum(1 for n in sizes if n > 0)
         flops = 2.0 * M * K * N
         nbytes = 2.0 * (M * K + used * K * N + M * N)
         t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         ms = device_ms(kernel)
+        ms_mma_sync = device_ms(on_plan(mma_plan))
         library_ms, library_timing, library_error = grouped_mm_ms(
             lambda: torch._grouped_mm(lhs, rhs, offs=ends), want,
             GMM_BF16_LIBRARY_TOL)
         rows[name] = {
             "shape": [G, M, K, N], "experts_used": used,
-            "plan": dataclasses.asdict(gmm_cuda.plan_ragged(M, N, K)),
+            "route": route, "plan": dataclasses.asdict(plan),
             "max_abs_err": err, "tol": tol, "ms": ms,
-            "tflops": flops / ms / 1e9, "plain_ms": device_ms(plain),
+            "tflops": flops / ms / 1e9,
+            "ms_mma_sync": ms_mma_sync,
+            "max_abs_err_mma_sync": errs["mma_sync"],
+            "plan_mma_sync": dataclasses.asdict(mma_plan),
+            "mma_sync_over_planned": ms_mma_sync / ms,
+            "tile_ms": {t: device_ms(on_plan(p)) for t, p in tiles.items()},
+            "tile_max_abs_err": {t: errs[t] for t in tiles},
+            "plain_ms": device_ms(plain),
             "library_ms": library_ms, "library_timing": library_timing,
             "library_error": library_error,
             "bound_ms": max(t_ops, t_bytes),
@@ -3566,21 +3651,44 @@ def check_moe_gmm(gmm_cuda, gmm_ref) -> dict:
 
 class ExpertChoices:
     """Records the expert choices of every ``moe._route`` call made inside
-    the ``with`` block (a measurement hook; the model is not changed)."""
+    the ``with`` block (a measurement hook; the model is not changed):
+    ``raw`` as the router returns them, ``idx`` sorted. ``replay`` maps a
+    call's index to the (T, k) choices it takes instead of its own: it
+    keeps its router's probabilities, and its combine weights are those
+    probabilities at the given experts, renormalised, as ``_route``
+    computes them at its own."""
 
-    def __init__(self, M):
-        self.M, self.route, self.idx = M, M._route, []
+    def __init__(self, M, replay=None):
+        self.M, self.route, self.idx, self.raw = M, M._route, [], []
+        self.replay = replay or {}
 
     def __enter__(self):
         def route(cfg, router, h):
-            out = self.route(cfg, router, h)
-            self.idx.append(torch.sort(out[2], -1).values)
-            return out
+            probs, w, idx = self.route(cfg, router, h)
+            forced = self.replay.get(len(self.raw))
+            if forced is not None:
+                idx = forced
+                w = probs.gather(-1, idx)
+                w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+            self.raw.append(idx)
+            self.idx.append(torch.sort(idx, -1).values)
+            return probs, w, idx
         self.M._route = route
         return self
 
     def __exit__(self, *exc):
         self.M._route = self.route
+
+
+def kernel_plain_calls(layers: int, n_new: int) -> list:
+    """(kernel call, plain call) index pairs of the ``moe._route`` calls
+    that ``lockstep_vs_plain`` makes, one a layer a forward: the kernel
+    run's prefill, the plain run's, the kernel run's decodes, the plain
+    run's."""
+    prefill = [(i, layers + i) for i in range(layers)]
+    decode = [(2 * layers + j, 2 * layers + n_new * layers + j)
+              for j in range(n_new * layers)]
+    return prefill + decode
 
 
 def moe_cut_comparisons(cfg, init_params, api, InputShape, tokens, n_new,
@@ -3594,7 +3702,13 @@ def moe_cut_comparisons(cfg, init_params, api, InputShape, tokens, n_new,
     against every plain version, reported only: there the attention's
     bf16 rounding of P moves the router's logits, some tokens pick another
     expert at a near-tie, and those rows' logits move by O(1); the tokens
-    whose expert set differs are counted, layer by layer."""
+    whose expert set differs are counted, layer by layer at the prefill
+    and in all over the decodes. In (1) the expert kernel may round an
+    output to the other bf16 neighbour of the plain product's, which can
+    tip a near-tie too: if any token is rerouted there, the comparison is
+    run again with the kernel run's expert choices replayed into the plain
+    run, and that is the error held; the first run's error and its
+    rerouted tokens are kept beside it."""
     cut = dataclasses.replace(cfg, num_layers=MOE_CUT_LAYERS,
                               name=f"{cfg.name}-l{MOE_CUT_LAYERS}")
     out = {}
@@ -3608,13 +3722,30 @@ def moe_cut_comparisons(cfg, init_params, api, InputShape, tokens, n_new,
         with ExpertChoices(M) as choices:
             pre, dec, _ = lockstep_vs_plain(run_cfg, model, api, InputShape,
                                             tokens, n_new, plain=plain)
-        # the kernel run's prefill routes first, then the plain run's
-        k_idx = choices.idx[:MOE_CUT_LAYERS]
-        r_idx = choices.idx[MOE_CUT_LAYERS:2 * MOE_CUT_LAYERS]
+        pairs = kernel_plain_calls(MOE_CUT_LAYERS, n_new)
+        if len(choices.idx) != 2 * len(pairs):
+            raise RuntimeError(f"moe_lockstep: {len(choices.idx)} routes, "
+                               f"not {2 * len(pairs)}")
+        moved = [int((choices.idx[k] != choices.idx[p]).any(-1).sum())
+                 for k, p in pairs]
         out[name] = {"prefill_max_abs_err": pre, "decode_max_abs_err": dec,
-                     "prefill_tokens_rerouted": [
-                         int((a != b).any(-1).sum())
-                         for a, b in zip(k_idx, r_idx)]}
+                     "prefill_tokens_rerouted": moved[:MOE_CUT_LAYERS],
+                     "decode_tokens_rerouted": sum(moved[MOE_CUT_LAYERS:]),
+                     "replayed": False}
+        if name == "bf16_experts" and any(moved):
+            replay = {p: choices.raw[k] for k, p in pairs}
+            with ExpertChoices(M, replay) as again:
+                pre_r, dec_r, _ = lockstep_vs_plain(
+                    run_cfg, model, api, InputShape, tokens, n_new,
+                    plain=plain)
+            if [again.raw[k].tolist() for k, _ in pairs] != \
+                    [choices.raw[k].tolist() for k, _ in pairs]:
+                raise RuntimeError("moe_lockstep: the kernel run routed "
+                                   "otherwise when run again")
+            out[name].update(
+                prefill_max_abs_err=pre_r, decode_max_abs_err=dec_r,
+                replayed=True, unreplayed={"prefill_max_abs_err": pre,
+                                           "decode_max_abs_err": dec})
         del model
         _free()
     return out
@@ -3625,18 +3756,25 @@ def moe_lockstep(CONFIG, init_params, api, InputShape, fa_ops,
     """Lock-step serving of the full 48-layer Moonlight-16B-A3B in bf16
     (~56 GB of weights): batch 8, 64-token prompts, 16 greedy decodes, fp
     and int8 caches; each forward runs 48 flash prefills (none in decode)
-    and 3 x 48 bf16 ``gmm_ragged`` launches. Then, after the counts are
-    read and the model freed, ``moe_cut_comparisons``."""
+    and 3 x 48 bf16 ``gmm_ragged`` launches, every one on the TMA and
+    ``wgmma`` route (``cuda.py``'s count of that route's launches). Then,
+    after the counts are read and the model freed,
+    ``moe_cut_comparisons``."""
+    from repro_torch.kernels.gmm import cuda as gmm_cuda
     cfg = CONFIG
     B, S, n_new = (MOE_LOCKSTEP[k] for k in ("batch", "prompt", "new"))
     counters = {"flash": (fa_ops, "launches"),
-                "gmm_ragged_bf16": (gmm_ops, "ragged_bf16_launches")}
+                "gmm_ragged_bf16": (gmm_ops, "ragged_bf16_launches"),
+                "gmm_ragged_bf16_wgmma": (gmm_cuda, "bf16_wgmma_launches")}
     model, out, readings = lockstep_serving(
         cfg, init_params, api, InputShape, counters, B, S, n_new, True)
     per_forward = 3 * cfg.num_layers
+    gmm = {"gmm_ragged_bf16": per_forward,
+           "gmm_ragged_bf16_wgmma": per_forward}
     lockstep_checks("moe_lockstep", cfg, out, readings,
-                    {"flash": cfg.num_layers, "gmm_ragged_bf16": per_forward},
-                    {"flash": 0, "gmm_ragged_bf16": per_forward})
+                    {"flash": cfg.num_layers, **gmm}, {"flash": 0, **gmm})
+    readings["moe_tick_profile"] = profile_moe_tick(cfg, model, api,
+                                                    InputShape, out)
     tokens = out["tokens"]
     del model, out
     _free()
@@ -3653,27 +3791,71 @@ def moe_lockstep(CONFIG, init_params, api, InputShape, fa_ops,
             "atol": LOGITS_ATOL}
 
 
+def profile_moe_tick(cfg, model, api, InputShape, out,
+                     ticks: int = 3, tries: int = 3) -> dict:
+    """Where a lock-step decode tick of the moe run goes, after its counts
+    are read: ``torch.profiler`` over ``ticks`` more greedy decodes from
+    the run's cache (grown to hold every try). Device time is the sum of
+    kernel times, the bf16 ``gmm_ragged`` kernels' part split out by name
+    and by route: it must all be the TMA and ``wgmma`` kernel's, none the
+    ``mma.sync`` one's. The busy share is device over host wall time."""
+    B = out["tokens"].shape[0]
+    cap = out["cache"]["k"].shape[2]
+    dec = api.build(cfg, InputShape("d", int(out["cache"]["index"]), B,
+                                    "decode"))
+    state = {"cache": api.grow_cache(out["cache"], cap + tries * ticks),
+             "tok": out["new_tokens"][-1]}
+
+    def run():
+        for _ in range(ticks):
+            logits, state["cache"] = dec.fn(model, state["cache"],
+                                            state["tok"])
+            state["tok"] = _greedy(logits, cfg)
+            state["tok"].cpu()
+    kernels, wall_ms = profiled(run, tries)
+    device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_route = bf16_gmm_by_route(kernels)
+    if not by_route["tma_wgmma"]["kernels"] or \
+            by_route["mma_sync"]["kernels"]:
+        raise RuntimeError(f"moe_tick_profile: bf16 gmm_ragged kernels by "
+                           f"route {by_route}, not all tma_wgmma")
+    gmm = sum(v["ms"] for v in by_route.values())
+    return {"ticks": ticks, "batch": B,
+            "wall_ms_per_tick": wall_ms / ticks,
+            "device_ms_per_tick": device / ticks,
+            "gmm_ragged_bf16_ms_per_tick": gmm / ticks,
+            "gmm_ragged_bf16_by_route": by_route,
+            "gmm_share_of_device": gmm / device,
+            "device_busy_share": device / wall_ms,
+            "kernels_per_tick": len(kernels) / ticks}
+
+
 def moe_serve(CONFIG, init_params, ParameterServer, WorldModelServer,
               fa_ops, gmm_ops) -> dict:
     """The serve tier (``serve``'s run: 4 slots, 8 requests of mixed
     lengths, one push) on Moonlight at full width and ``MOE_SERVE_LAYERS``
     layers, bf16: every request answered, the push picked up, one decode
     shape, and 3 bf16 ``gmm_ragged`` launches a layer in every prefill and
-    every decode tick."""
+    every decode tick, all on the TMA and ``wgmma`` route."""
+    from repro_torch.kernels.gmm import cuda as gmm_cuda
     cfg = dataclasses.replace(CONFIG, num_layers=MOE_SERVE_LAYERS,
                               name=f"{CONFIG.name}-l{MOE_SERVE_LAYERS}")
     torch.cuda.reset_peak_memory_stats()
     gmm_ops.ragged_bf16_launches = 0
+    gmm_cuda.bf16_wgmma_launches = 0
     srv, served = serve(cfg, init_params, ParameterServer, WorldModelServer,
                         fa_ops)
     launches = gmm_ops.ragged_bf16_launches
+    wgmma = gmm_cuda.bf16_wgmma_launches
     want = 3 * cfg.num_layers * (served["prefills"] + served["decode_ticks"])
     del srv
     _free()
-    if launches != want:
+    if launches != want or wgmma != want:
         raise RuntimeError(f"moe_serve: {launches} gmm_ragged bf16 launches,"
-                           f" not {want} (3 a layer a forward)")
-    return {**served, "gmm_ragged_bf16_launches": launches}
+                           f" {wgmma} of them tma_wgmma, not {want} (3 a "
+                           f"layer a forward)")
+    return {**served, "gmm_ragged_bf16_launches": launches,
+            "gmm_ragged_bf16_wgmma_launches": wgmma}
 
 
 def hybrid_lockstep(CONFIG, init_params, api, InputShape, fa_ops,
@@ -3775,9 +3957,15 @@ def main() -> int:
         if not hmma[str(src.relative_to(ROOT))]:
             raise RuntimeError(f"{src.name}: no tensor-core (HMMA) "
                                "instruction in its library")
+    hopper = {op: build.count_sass(built[gmm_cuda.SOURCE]["library"], op)
+              for op in ("HGMMA", "UTMALDG")}
+    if not all(hopper.values()):
+        raise RuntimeError(f"gmm.cu: no wgmma (HGMMA) or TMA load "
+                           f"(UTMALDG) in its library: {hopper}")
     emit({"phase": "build", "seconds": seconds,
           "sources": [str(s.relative_to(ROOT)) for s in sources],
           "hmma_instructions": hmma,
+          "gmm_hopper_instructions": hopper,
           "registers": {str(src.relative_to(ROOT)): ptxas_kernels(info["log"])
                         for src, info in built.items()},
           "ptxas": [line.strip() for info in built.values()
@@ -3978,15 +4166,17 @@ def main() -> int:
         "source": str(gmm_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/gmm/pallas.py:104",
         "launches": moe["launches"]["gmm_ragged_bf16"],
+        "launches_tma_wgmma": moe["launches"]["gmm_ragged_bf16_wgmma"],
         "launches_moe_serve": moe_served["gmm_ragged_bf16_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in moe_rows.values()),
         "ms": mg["ms"], "plain_ms": mg["plain_ms"],
         "bound_ms": mg["bound_ms"], "bound_by": mg["bound_by"],
         "library_ms": mg["library_ms"], "tflops": mg["tflops"],
+        "kernel_route": mg["route"], "ms_mma_sync": mg["ms_mma_sync"],
         "shape": MOE_GMM_MAIN,
         "other_shapes": {name: {k: r[k] for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")} for name, r in moe_rows.items()
+            "shape", "route", "ms", "ms_mma_sync", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")} for name, r in moe_rows.items()
             if not name.startswith("edge") and name != MOE_GMM_MAIN}}, {
         "name": "imag_fused", "route": "cuda",
         "source": str(imag_cuda.SOURCE.relative_to(ROOT)),

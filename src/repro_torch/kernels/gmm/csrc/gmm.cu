@@ -1,7 +1,8 @@
 // Grouped matrix products for Hopper (sm_90a), in plain CUDA C++.
 //
 // Three kernels, f32 in and out, all on the same 3xTF32 tensor-core tiles,
-// and a bf16 route of the ragged one (gmm_ragged_bf16, at the end):
+// and two bf16 routes of the ragged one (gmm_ragged_bf16 and, on TMA and
+// wgmma, gmm_ragged_bf16_wgmma, at the end):
 //
 // gmm_equal replaces the TPU kernel src/repro/kernels/gmm/pallas.py::
 // _equal_grouped_matmul (body `_kernel`): C[g] = A[g] x B[g] for every group
@@ -121,9 +122,56 @@
 // (Moonlight, 3,072 rows over 64 experts) the expert weights' bytes, 0.37
 // GB a product against 18 GFLOP; at decode (48 rows) the same bytes of the
 // experts the rows use, read by few blocks, each walking its groups one
-// after another: latency, not the card's rate. It is forward only.
+// after another: latency, not the card's rate. It is forward only, and
+// since the wgmma route below it runs only the shapes a tensor map cannot
+// address (a row stride that is not a multiple of 16 bytes, as K = 130 or
+// N = 70, an unaligned base, K = 0, no group), as plan_ragged_bf16 names
+// them before the launch.
+//
+// gmm_ragged_bf16_wgmma is the bf16 route redesigned for Hopper, what the
+// MoE runs. The mma.sync route lost to its bounds on three counts: a block
+// owned a fixed output tile and walked, one after another, every group
+// whose rows overlap it, re-reading each such expert's whole weight slab
+// with the other groups' rows masked to zero (at Moonlight's prefill, ~48
+// rows an expert, each expert's weights read about twice and half the MMA
+// work masked away; at its decode, 48 rows over ~34 experts, each of 88
+// blocks walked ~25 experts with two 4 KB stages in flight: latency);
+// and mma.sync from four warps tops out near 134 TFLOP/s (Mixtral's
+// prefill). The redesign, against each:
+// * A schedule read on the device. A unit is (group g, column tile, row
+//   tile t of g's own rows), its rows offs[g] + t * bm.. : every output row
+//   belongs to one unit and no unit multiplies another group's rows into
+//   its sums (rows of the box past g's end are multiplied by rhs[g] and not
+//   stored; row m of the output depends only on row m of lhs). Every block
+//   reads the offsets, counts each group's row tiles and takes its unit by
+//   a prefix sum in shared memory (G <= 1,024), so one launch sized by the
+//   bound (ceil(M / bm) + G + 1) x tiles_n serves any group sizes, a CUDA
+//   graph replays it after the sizes change, and a block past the last
+//   unit exits. An empty group gives no unit; the rows past offs[G] (and
+//   before offs[0]) are units of their own that store zeros. Units are
+//   numbered group by group, column tile by column tile, row tile by row
+//   tile, so the blocks in flight share an expert's weight slab in L2.
+// * TMA into a ring, wgmma out of it. One producer thread issues
+//   cp.async.bulk.tensor copies of the lhs box (bm x 64) and expert g's
+//   rhs slab (64 x bn) into a ring of 4 stages in dynamic shared memory,
+//   128-byte swizzled, completing on an mbarrier a stage; one or two
+//   consumer warpgroups (64 rows each) run wgmma.mma_async m64nNk16, bf16
+//   in and f32 sums, four a stage, keep one stage's products in flight and
+//   free the stage before it through a second mbarrier. rhs stored (K, N)
+//   is read N-major in 64-column boxes, its transposed view K-major in one
+//   box; past every edge TMA fills zeros. The epilogue rounds to nearest
+//   even and stores only the unit's own rows (a TMA store of the whole box
+//   would overwrite the next group's rows).
+// * Tiles by shape (plan_ragged_bf16 in ../cuda.py): 64 x 128 units where
+//   the groups are small (decode and Moonlight's prefill: bytes-bound, so
+//   many units and two blocks an SM keep HBM busy), 128 x 256 units on two
+//   warpgroups where they are large (Mixtral's ~512-row groups: bounded by
+//   the tensor cores). The tensor maps are encoded on the host at each call
+//   through cuTensorMapEncodeTiled, looked up through the CUDA runtime
+//   so the library needs no -lcuda, and passed as __grid_constant__.
 //
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -789,6 +837,502 @@ bool vec16_ok(const void* p, long long ld, long long gs) {
          gs % 8 == 0;
 }
 
+
+// ------------------------------------------- bf16 route on TMA and wgmma
+
+constexpr int TMA_BK = 64;             // contraction tile: one 128-byte row
+constexpr int MAX_TMA_GROUPS = 1024;   // the block's boundary table
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity. A wait
+// that outlasts 2^26 polls (seconds; a stage takes microseconds) traps, so
+// a broken pipeline faults the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done = 0;
+  for (unsigned polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// One TMA copy of a box of `map` at coordinates (c0, c1[, c2]), innermost
+// first, into shared memory; its bytes complete on `bar`. Out-of-bounds
+// elements arrive as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma's descriptor of a 128-byte-swizzled operand tile at shared address
+// a: lbo and sbo are the byte strides between its 8 x 128-byte core groups
+// along the two dimensions, as the layouts in the header give them.
+__device__ __forceinline__ uint64_t sw128_desc(unsigned a, unsigned lbo,
+                                               unsigned sbo) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous products that own them
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N, f32) += A (64 x 16, K-major) x B (16 x N), bf16 in; TRANS = 0:
+// B K-major, TRANS = 1: B N-major. Thread t of the warpgroup holds, for each
+// 8-column block i, d[4i..4i+1] at row 16 (t / 32) + (t % 32) / 4, columns
+// 8i + 2 (t % 4) and the next, and d[4i+2..4i+3] eight rows further down.
+template <int TRANS>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS));
+}
+
+template <int TRANS>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
+                                                 uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "%128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS));
+}
+
+template <int BN, int TRANS>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (BN == 128)
+    wgmma_m64n128k16<TRANS>(d, da, db);
+  else
+    wgmma_m64n256k16<TRANS>(d, da, db);
+}
+
+// A (BM x BN) unit's launch constants: BM / 64 consumer warpgroups and one
+// producer warp; a stage holds the lhs box (BM x 64) and the rhs slab
+// (64 x BN), 128 bytes a row; the ring, its two barriers a stage and the
+// slack to align it to 1024 bytes are dynamic shared memory.
+template <int BM, int BN, int STAGES>
+struct TmaTile {
+  static constexpr int WGS = BM / 64;
+  static constexpr int THREADS = 128 * WGS + 32;
+  static constexpr int A_BYTES = BM * TMA_BK * 2;
+  static constexpr int B_BYTES = BN * TMA_BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+  static constexpr int MIN_BLOCKS = SMEM <= 108 * 1024 ? 2 : 1;
+  static_assert(BM == 64 || BM == 128, "one or two consumer warpgroups");
+  static_assert(BN == 128 || BN == 256, "wgmma widths");
+};
+
+__device__ __forceinline__ int row_tiles(int rows, int bm) {
+  return rows > 0 ? (rows + bm - 1) / bm : 0;
+}
+
+// grid: (ceil(M / BM) + G + 1) * tiles_n blocks, the bound on the units.
+// The rows fall into G + 2 ranges: [0, offs[0]), group g's [offs[g],
+// offs[g + 1]) and [offs[G], M), each offset clamped to [0, M]; the first
+// and last are the rows no group covers. Range r has ceil(len / BM) row
+// tiles, starting at its first row, and a unit is (range, column tile,
+// row tile); the units are numbered range by range, column tile by column
+// tile, row tile by row tile, and block b takes unit b. Every block reads
+// the offsets and finds its unit by a prefix sum, so nothing is read on
+// the host. A block past the last unit exits; a unit of an uncovered range
+// stores zeros. TB: rhs stored (N, K) a group (read K-major), else (K, N).
+template <int BM, int BN, int STAGES, bool TB>
+__global__ void __launch_bounds__(TmaTile<BM, BN, STAGES>::THREADS,
+                                  TmaTile<BM, BN, STAGES>::MIN_BLOCKS)
+    gmm_ragged_bf16_wgmma_tc(const __grid_constant__ CUtensorMap lhs_map,
+                             const __grid_constant__ CUtensorMap rhs_map,
+                             const int* __restrict__ offs,
+                             bf16_t* __restrict__ out, int G, int M, int N,
+                             int K, int tiles_n) {
+  using T = TmaTile<BM, BN, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int bounds[MAX_TMA_GROUPS + 3];
+  __shared__ int warp_sum[T::THREADS / 32];
+  __shared__ int unit[3];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+
+  // the schedule: this block's unit, from the offsets
+  const int R = G + 2;
+  for (int j = tid; j <= R; j += T::THREADS)
+    bounds[j] = j == 0 ? 0 : j == R ? M : min(max(__ldg(offs + j - 1), 0), M);
+  if (tid == 0) unit[0] = -1;
+  __syncthreads();
+  const int per = (R + T::THREADS - 1) / T::THREADS;
+  const int r_lo = min(tid * per, R), r_hi = min(r_lo + per, R);
+  int mine = 0;
+  for (int r = r_lo; r < r_hi; ++r)
+    mine += row_tiles(bounds[r + 1] - bounds[r], BM) * tiles_n;
+  int incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) incl += warp_sum[w];
+  const int u = blockIdx.x;
+  if (u >= incl - mine && u < incl) {
+    int first = incl - mine;
+    for (int r = r_lo; r < r_hi; ++r) {
+      const int rows = row_tiles(bounds[r + 1] - bounds[r], BM);
+      if (u < first + rows * tiles_n) {
+        unit[0] = r;
+        unit[1] = (u - first) / rows;
+        unit[2] = (u - first) % rows;
+        break;
+      }
+      first += rows * tiles_n;
+    }
+  }
+  __syncthreads();
+  const int r = unit[0];
+  if (r < 0) return;  // past the last unit
+  const int n0 = unit[1] * BN;
+  const int m0 = bounds[r] + unit[2] * BM;
+  const int m_end = min(bounds[r + 1], m0 + BM);
+  const int g = r - 1;
+  const int nk = (r == 0 || r == R - 1) ? 0 : (K + TMA_BK - 1) / TMA_BK;
+
+  // the ring, aligned to 1024 bytes as the 128-byte swizzle repeats
+  const unsigned raw = smem_u32(smem_raw);
+  const unsigned base = (raw + 1023) & ~1023u;
+  unsigned char* tiles_s = smem_raw + (base - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles_s + STAGES *
+                                               T::STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * T::WGS);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * T::WGS) {
+    // the producer: one thread keeps the ring's loads in flight
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(empty + s, (kt / STAGES - 1) & 1);
+        mbar_expect_tx(full + s, T::STAGE_BYTES);
+        unsigned char* a = tiles_s + s * T::A_BYTES;
+        unsigned char* b = tiles_s + STAGES * T::A_BYTES + s * T::B_BYTES;
+        tma_load(a, &lhs_map, full + s, kt * TMA_BK, m0);
+        if (TB) {
+          tma_load(b, &rhs_map, full + s, kt * TMA_BK, n0, g);
+        } else {
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load(b + j * 64 * TMA_BK * 2, &rhs_map, full + s,
+                     n0 + 64 * j, kt * TMA_BK, g);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows [64 wg, 64 wg + 64) of the unit
+  const int wg = warp / 4;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(full + s, (kt / STAGES) & 1);
+    const unsigned a = base + s * T::A_BYTES + wg * 64 * 128;
+    const unsigned b = base + STAGES * T::A_BYTES + s * T::B_BYTES;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TMA_BK / 16; ++kk) {
+      // K-major: 16 values are 32 bytes along the swizzled row; N-major:
+      // 16 contraction rows of 128 bytes, the 64-column boxes 8 KB apart
+      const uint64_t da = sw128_desc(a + kk * 32, 16, 1024);
+      const uint64_t db = TB ? sw128_desc(b + kk * 32, 16, 1024)
+                             : sw128_desc(b + kk * 16 * 128,
+                                          64 * TMA_BK * 2, 1024);
+      wgmma_tile<BN, TB ? 0 : 1>(acc, da, db);
+    }
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();  // the previous stage's products are done: free it
+    if (kt > 0 && lane == 0) mbar_arrive(empty + (kt - 1) % STAGES);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // the epilogue: round to nearest even, store the unit's own rows only
+  const int row = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const bool pairs = N % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    const int n = n0 + 8 * i + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row + 8 * h;
+      if (m >= m_end) continue;
+      bf16_t* o = out + (size_t)m * N + n;
+      const float lo = acc[4 * i + 2 * h], hi = acc[4 * i + 2 * h + 1];
+      if (pairs && n + 1 < N) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+        *reinterpret_cast<unsigned*>(o) =
+            *reinterpret_cast<const unsigned*>(&v);
+      } else {
+        if (n < N) o[0] = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
+        if (n + 1 < N) o[1] = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// links no libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return reinterpret_cast<EncodeTiled>(
+        e == cudaSuccess && q == cudaDriverEntryPointSuccess ? p : nullptr);
+  }();
+  return fn;
+}
+
+// A tensor map of bf16 values at `base`: extents innermost first, byte
+// strides of the outer dimensions, a box of `box` values, 128-byte swizzle,
+// zeros out of bounds.
+bool bf16_map(CUtensorMap* map, const void* base, cuuint32_t rank,
+              const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t unit_strides[3] = {1, 1, 1};
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(base), dims, strides, box, unit_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, int BN, int STAGES, bool TB>
+cudaError_t launch_wgmma(const CUtensorMap& a, const CUtensorMap& b,
+                         const int* offs, bf16_t* out, int G, int M, int N,
+                         int K, int tiles_n, unsigned blocks,
+                         cudaStream_t s) {
+  using T = TmaTile<BM, BN, STAGES>;
+  // once a process, before its first launch (also outside a graph capture)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_ragged_bf16_wgmma_tc<BM, BN, STAGES, TB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return attr;
+  gmm_ragged_bf16_wgmma_tc<BM, BN, STAGES, TB>
+      <<<blocks, T::THREADS, T::SMEM, s>>>(a, b, offs, out, G, M, N, K,
+                                           tiles_n);
+  return cudaGetLastError();
+}
+
+template <int BM, int BN, int STAGES>
+struct WgmmaLaunch {
+  static cudaError_t run(int trans_b, const bf16_t* lhs, const bf16_t* rhs,
+                         const int* offs, bf16_t* out, int G, int M, int N,
+                         int K, long long b_gs, cudaStream_t s) {
+    const int tn = tiles(N, BN);
+    const long long blocks = ((long long)tiles(M, BM) + G + 1) * tn;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    CUtensorMap a_map, b_map;
+    const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+    const cuuint64_t a_strides[1] = {(cuuint64_t)K * 2};
+    const cuuint32_t a_box[2] = {TMA_BK, BM};
+    if (!bf16_map(&a_map, lhs, 2, a_dims, a_strides, a_box))
+      return cudaErrorInvalidValue;
+    // one group's stride is never read; any multiple of 16 bytes will do
+    const cuuint64_t gs = 2 * (cuuint64_t)(G > 1 ? b_gs : (long long)K * N);
+    if (trans_b) {
+      const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)N,
+                                  (cuuint64_t)G};
+      const cuuint64_t strides[2] = {(cuuint64_t)K * 2, gs};
+      const cuuint32_t box[3] = {TMA_BK, BN, 1};
+      if (!bf16_map(&b_map, rhs, 3, dims, strides, box))
+        return cudaErrorInvalidValue;
+      return launch_wgmma<BM, BN, STAGES, true>(
+          a_map, b_map, offs, out, G, M, N, K, tn, (unsigned)blocks, s);
+    }
+    const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)G};
+    const cuuint64_t strides[2] = {(cuuint64_t)N * 2, gs};
+    const cuuint32_t box[3] = {64, TMA_BK, 1};
+    if (!bf16_map(&b_map, rhs, 3, dims, strides, box))
+      return cudaErrorInvalidValue;
+    return launch_wgmma<BM, BN, STAGES, false>(
+        a_map, b_map, offs, out, G, M, N, K, tn, (unsigned)blocks, s);
+  }
+};
+
+// The (bm, bn, stages) the TMA route instantiates, as cuda.py's BF16_TILES
+// lists them; any other is cudaErrorInvalidValue.
+template <typename... A>
+cudaError_t by_wgmma_tile(int bm, int bn, int stages, A... args) {
+  if (bm == 64 && bn == 128 && stages == 4)
+    return WgmmaLaunch<64, 128, 4>::run(args...);
+  if (bm == 128 && bn == 256 && stages == 4)
+    return WgmmaLaunch<128, 256, 4>::run(args...);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace tc
 
 // C[g] = op(A)[g] x op(B)[g] on (bm x bn) output tiles with the contraction
@@ -861,6 +1405,30 @@ extern "C" int gmm_ragged_bf16(const unsigned short* lhs,
       (int)tc::vec16_ok(lhs, K, 0),
       (int)tc::vec16_ok(rhs, trans_b ? K : N, rhs_group_stride),
       static_cast<cudaStream_t>(stream)));
+}
+
+// gmm_ragged_bf16 on the TMA and wgmma route: the same product, on (bm x
+// bn) units of one group's own rows fed by `stages` TMA stages, as
+// plan_ragged_bf16 picks them. Takes what a tensor map can address: G in
+// 1..1024, K > 0 and a multiple of 8, N a multiple of 8 where rhs is stored
+// (K, N), lhs and rhs 16-byte aligned, the group stride a multiple of 8
+// values; else, or for a tile it does not instantiate, cudaErrorInvalidValue.
+extern "C" int gmm_ragged_bf16_wgmma(const unsigned short* lhs,
+                                     const unsigned short* rhs,
+                                     const int* offs, unsigned short* out,
+                                     int G, int M, int N, int K, int trans_b,
+                                     long long rhs_group_stride, int bm,
+                                     int bn, int stages, void* stream) {
+  if (M == 0 || N == 0) return 0;
+  if (G < 1 || G > tc::MAX_TMA_GROUPS || K <= 0 || K % 8 != 0 ||
+      (!trans_b && N % 8 != 0) ||
+      (reinterpret_cast<uintptr_t>(lhs) | reinterpret_cast<uintptr_t>(rhs)) %
+              16 != 0 ||
+      (G > 1 && rhs_group_stride % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  return tc::result(tc::by_wgmma_tile(
+      bm, bn, stages, trans_b, lhs, rhs, offs, out, G, M, N, K,
+      rhs_group_stride, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* gmm_error_string(int code) {

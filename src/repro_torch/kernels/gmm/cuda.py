@@ -12,15 +12,17 @@ first launch, never at import. The functions launch on the current
 stream, do not synchronise, and raise on inputs the kernels do not take.
 
 The planners (:func:`plan_equal`, :func:`plan_ragged`,
-:func:`plan_ragged_dw`) pick each kernel's output tile and split from the
-product's shape alone, in Python, so the CPU tests check the plan that the
-card runs.
+:func:`plan_ragged_dw`, :func:`plan_ragged_bf16`) pick each kernel's
+output tile and split, and the bf16 product's route, from the product's
+shape alone, in Python, so the CPU tests check the plan that the card
+runs.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+import threading
 from pathlib import Path
 
 import torch
@@ -36,6 +38,17 @@ MAX_DW_SPLIT = 8                # gmm_ragged_dw: the portable cluster size
 MAX_GROUPS = 65535              # the grid's y extent
 # the output tiles gmm.cu instantiates, widest first
 TILES = ((64, 64), (64, 32), (32, 64), (32, 32))
+# the bf16 TMA route's (bm, bn, stages), as gmm.cu instantiates them
+BF16_TILES = ((64, 128, 4), (128, 256, 4))
+MAX_TMA_GROUPS = 1024           # gmm.cu's boundary table in shared memory
+ROUTE_WGMMA = "tma_wgmma"       # gmm_ragged_bf16_wgmma
+ROUTE_MMA_SYNC = "mma_sync"     # gmm_ragged_bf16, on mma.sync
+
+# bf16 launches by route, counted where each kernel is launched, so that a
+# run can show which route its products took
+bf16_wgmma_launches = 0
+bf16_mma_sync_launches = 0
+_route_lock = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +67,20 @@ class RaggedPlan:
     """``gmm_ragged``'s launch: one block a (bm x bn) output tile."""
     bm: int
     bn: int
+    blocks: int
+
+
+@dataclasses.dataclass(frozen=True)
+class RaggedBf16Plan:
+    """``gmm_ragged``'s bf16 launch: the route, the (bm x bn) unit and the
+    ring's ``stages`` (2 on the mma.sync route, its cp.async stages), and
+    ``blocks``: on the TMA route the bound (ceil(M / bm) + G + 1) x
+    ceil(N / bn) on the units, of which the blocks past the real count
+    exit; on the mma.sync route one block an output tile."""
+    route: str
+    bm: int
+    bn: int
+    stages: int
     blocks: int
 
 
@@ -133,6 +160,51 @@ def plan_ragged(M: int, N: int, K: int) -> RaggedPlan:
     return RaggedPlan(32, 32, blocks(32, 32))
 
 
+def _bf16_mma_sync_plan(M: int, N: int, K: int) -> RaggedBf16Plan:
+    """The mma.sync route at ``plan_ragged``'s tile."""
+    p = plan_ragged(M, N, K)
+    return RaggedBf16Plan(ROUTE_MMA_SYNC, p.bm, p.bn, 2, p.blocks)
+
+
+def _bf16_tma_plan(M: int, N: int, G: int, bm: int, bn: int,
+                   stages: int) -> RaggedBf16Plan:
+    blocks = (_cdiv(M, bm) + G + 1) * _cdiv(N, bn) if M and N else 0
+    return RaggedBf16Plan(ROUTE_WGMMA, bm, bn, stages, blocks)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_ragged_bf16(M: int, N: int, K: int, G: int,
+                     aligned: bool = True) -> RaggedBf16Plan:
+    """The bf16 ragged product's route and tile, from its shape.
+
+    The TMA and wgmma route takes what a tensor map can address: K > 0
+    and N multiples of 8 (rows of 16 bytes, in either layout of rhs), at
+    least one group and ``aligned`` (both bases 16-byte aligned and the
+    group stride a multiple of 8 values, as the caller finds them). Any
+    other shape goes to the mma.sync kernel at :func:`plan_ragged`'s
+    tile, decided here, before the launch, never after a failure. Tiles,
+    as timed on the H100 at the MoE's shapes (``PERF.md``): groups of at
+    most 64 rows on average (decode, and Moonlight's ~48-row prefill
+    groups: the experts' bytes bound them) take 64 x 128 units on a ring
+    of 4 stages, two blocks an SM; larger groups (Mixtral's ~512 rows) are
+    bounded by the tensor cores and take 128 x 256 units on two
+    warpgroups. TMA fills zeros past N and the stores are masked, so
+    either tile takes every N the route takes. Raises ValueError on negative extents and on
+    more than ``MAX_TMA_GROUPS`` groups (the kernel's table of offsets
+    lives in shared memory)."""
+    if min(M, N, K, G) < 0:
+        raise ValueError(f"gmm_ragged bf16: negative extent in "
+                         f"{(M, N, K, G)}")
+    if G > MAX_TMA_GROUPS:
+        raise ValueError(f"gmm_ragged bf16: {G} groups, the kernel takes "
+                         f"at most {MAX_TMA_GROUPS}")
+    if not (aligned and G >= 1 and K > 0 and K % 8 == 0 and N % 8 == 0):
+        return _bf16_mma_sync_plan(M, N, K)
+    if M <= 64 * G:
+        return _bf16_tma_plan(M, N, G, 64, 128, 4)
+    return _bf16_tma_plan(M, N, G, 128, 256, 4)
+
+
 @functools.lru_cache(maxsize=256)
 def plan_ragged_dw(G: int, M: int, K: int, N: int) -> RaggedDwPlan:
     """(G, K, N) gradient tiles over M rows in G groups: the widest tile,
@@ -173,6 +245,10 @@ def _library() -> ctypes.CDLL:
     lib.gmm_ragged.restype = ctypes.c_int
     lib.gmm_ragged_bf16.argtypes = lib.gmm_ragged.argtypes
     lib.gmm_ragged_bf16.restype = ctypes.c_int
+    lib.gmm_ragged_bf16_wgmma.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.gmm_ragged_bf16_wgmma.restype = ctypes.c_int
     lib.gmm_ragged_dw.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.gmm_ragged_dw.restype = ctypes.c_int
@@ -273,8 +349,8 @@ def gmm_ragged(lhs: torch.Tensor, rhs: torch.Tensor,
     of group g and ``offsets[G] == M``; rows past ``offsets[G]`` get 0.
     ``rhs`` may be a transposed view (``w.transpose(1, 2)`` of a
     contiguous (G, N, K) tensor, as the backward's ``dx = dy x W^T``
-    passes it): the kernel reads it in place. The launch follows
-    :func:`plan_ragged`."""
+    passes it): the kernel reads it in place. The float32 launch follows
+    :func:`plan_ragged`, the bfloat16 one :func:`plan_ragged_bf16`."""
     if lhs.dtype not in _RAGGED_DTYPES:
         raise ValueError(f"gmm_ragged takes float32 or bfloat16, got lhs "
                          f"{lhs.dtype}")
@@ -288,15 +364,50 @@ def gmm_ragged(lhs: torch.Tensor, rhs: torch.Tensor,
     _check_offsets("gmm_ragged", offsets, G, lhs.device)
     _check_contiguous("gmm_ragged", lhs=lhs)
     trans_b, b_gs = _layout("rhs", rhs)
+    if lhs.dtype == torch.bfloat16:
+        aligned = ((lhs.data_ptr() | rhs.data_ptr()) % 16 == 0
+                   and b_gs % 8 == 0)
+        return _gmm_ragged_bf16(lhs, rhs, offsets,
+                                plan_ragged_bf16(M, N, K, G, aligned))
     plan = plan_ragged(M, N, K)
     out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
     lib = _library()
-    launch = (lib.gmm_ragged if lhs.dtype == torch.float32
-              else lib.gmm_ragged_bf16)
-    err = launch(lhs.data_ptr(), rhs.data_ptr(), offsets.data_ptr(),
-                 out.data_ptr(), G, M, N, K, trans_b, b_gs, plan.bm, plan.bn,
-                 torch.cuda.current_stream(lhs.device).cuda_stream)
+    err = lib.gmm_ragged(lhs.data_ptr(), rhs.data_ptr(), offsets.data_ptr(),
+                         out.data_ptr(), G, M, N, K, trans_b, b_gs, plan.bm,
+                         plan.bn,
+                         torch.cuda.current_stream(lhs.device).cuda_stream)
     _raise_on(err, lib, "gmm_ragged")
+    return out
+
+
+def _gmm_ragged_bf16(lhs: torch.Tensor, rhs: torch.Tensor,
+                     offsets: torch.Tensor,
+                     plan: RaggedBf16Plan) -> torch.Tensor:
+    """The bf16 product on the route and tile ``plan`` names, checked by
+    :func:`gmm_ragged`: its launcher, and ``chip_smoke.py``'s, which
+    forces the mma.sync route or another tile at the same shape to
+    time it beside the planned one. Adds one to the route's count."""
+    global bf16_wgmma_launches, bf16_mma_sync_launches
+    M, K = lhs.shape
+    G, _, N = rhs.shape
+    trans_b, b_gs = _layout("rhs", rhs)
+    out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
+    lib = _library()
+    stream = torch.cuda.current_stream(lhs.device).cuda_stream
+    args = (lhs.data_ptr(), rhs.data_ptr(), offsets.data_ptr(),
+            out.data_ptr(), G, M, N, K, trans_b, b_gs, plan.bm, plan.bn)
+    if plan.route == ROUTE_WGMMA:
+        err = lib.gmm_ragged_bf16_wgmma(*args, plan.stages, stream)
+    elif plan.route == ROUTE_MMA_SYNC:
+        err = lib.gmm_ragged_bf16(*args, stream)
+    else:
+        raise ValueError(f"gmm_ragged bf16: unknown route {plan.route!r}")
+    _raise_on(err, lib, f"gmm_ragged bf16 ({plan.route})")
+    with _route_lock:
+        if plan.route == ROUTE_WGMMA:
+            bf16_wgmma_launches += 1
+        else:
+            bf16_mma_sync_launches += 1
     return out
 
 

@@ -503,6 +503,117 @@ def test_gmm_ragged_bf16_route_is_forward_only_and_refuses(card):
     assert (gmm_ops.ragged_bf16_launches, gmm_ops.ragged_launches) == before
 
 
+# the dropless MoE's six products at full width (name, experts, tokens,
+# top-k, K, N, as chip_smoke.py's MOE_GMM_CASES): Moonlight-16B-A3B's
+# decode (8 tokens) and prefill (512), Mixtral-8x7B's prefill (2,048)
+GMM_BF16_MOE_FULL = [
+    ("moonlight_decode_up", 64, 8, 6, 2048, 1408),
+    ("moonlight_decode_down", 64, 8, 6, 1408, 2048),
+    ("moonlight_prefill_up", 64, 512, 6, 2048, 1408),
+    ("moonlight_prefill_down", 64, 512, 6, 1408, 2048),
+    ("mixtral_prefill_up", 8, 2048, 2, 4096, 14336),
+    ("mixtral_prefill_down", 8, 2048, 2, 14336, 4096),
+]
+
+
+def _routed(rng, experts, tokens, top_k):
+    picks = rng.random((tokens, experts)).argsort(-1)[:, :top_k]
+    return np.bincount(picks.reshape(-1), minlength=experts)
+
+
+def _bf16_close(got, want):
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GMM_BF16_TOL * scale, (err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GMM_BF16_MOE_FULL, ids=lambda c: c[0])
+@pytest.mark.parametrize("trans", [False, True])
+def test_gmm_ragged_bf16_tma_route_at_the_moe_shapes(card, case, trans):
+    """The TMA and wgmma route, as the planner names it at the MoE's six
+    products, against the looped plain product, rhs as stored and as a
+    transposed view; the mma.sync route, forced at the same shape,
+    within the same tolerance."""
+    name, G, T, k, K, N = case
+    rng = np.random.default_rng(31)
+    lhs, rhs, gs = _bf16_case(rng, card, G, T * k, K, N,
+                              _routed(rng, G, T, k))
+    if trans:
+        rhs = rhs.transpose(1, 2).contiguous().transpose(1, 2)
+    plan = gmm_cuda.plan_ragged_bf16(T * k, N, K, G)
+    assert plan.route == gmm_cuda.ROUTE_WGMMA
+    offs = gmm_ref.group_offsets(gs)
+    before = (gmm_cuda.bf16_wgmma_launches, gmm_cuda.bf16_mma_sync_launches)
+    got = gmm_cuda.gmm_ragged(lhs, rhs, offs)
+    assert (gmm_cuda.bf16_wgmma_launches - before[0],
+            gmm_cuda.bf16_mma_sync_launches - before[1]) == (1, 0)
+    forced = gmm_cuda._gmm_ragged_bf16(
+        lhs, rhs, offs, gmm_cuda._bf16_mma_sync_plan(T * k, N, K))
+    torch.cuda.synchronize()
+    want = gmm_ref.grouped_matmul_looped(lhs, rhs, gs)
+    _bf16_close(got, want)
+    _bf16_close(forced, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", gmm_cuda.BF16_TILES, ids=str)
+@pytest.mark.parametrize("sizes", [
+    (0, 0, 777, 0),                       # one group owns every row
+    tuple(range(128)),                    # Qwen3-MoE's 128 experts
+    (0, 65, 0, 0, 1, 128, 129, 0),        # empty groups, tile edges
+], ids=["one_group", "g128", "empty_groups"])
+def test_gmm_ragged_bf16_tma_tiles_at_edge_patterns(card, tile, sizes):
+    """Every tile the route instantiates, both rhs layouts, K and N not
+    multiples of the tile, rows past the last offset zero."""
+    rng = np.random.default_rng(32)
+    G, M, K, N = len(sizes), sum(sizes), 136, 200
+    lhs, rhs, _ = _bf16_case(rng, card, G, M + 9, K, N, sizes)
+    offs = gmm_ref.group_offsets(torch.tensor(sizes, dtype=torch.int32,
+                                              device=card))
+    plan = gmm_cuda._bf16_tma_plan(M + 9, N, G, *tile)
+    want = gmm_ref.grouped_matmul_looped(lhs[:M], rhs, sizes)
+    for r in (rhs, rhs.transpose(1, 2).contiguous().transpose(1, 2)):
+        got = gmm_cuda._gmm_ragged_bf16(lhs, r, offs, plan)
+        torch.cuda.synchronize()
+        _bf16_close(got[:M], want)
+        assert not bool(got[M:].any())
+
+
+@pytest.mark.gpu
+def test_gmm_ragged_bf16_tma_schedule_is_read_on_the_device(card):
+    """One launch captured in a CUDA graph, replayed after other group
+    sizes are written into the same offsets tensor: each replay matches
+    the looped plain product at the new sizes, and the rows past them are
+    zero. Nothing reads the sizes on the host, so the captured launch
+    finds its units from the offsets it reads at each replay."""
+    rng = np.random.default_rng(33)
+    G, M, K, N = 16, 384, 256, 320
+    lhs, rhs, _ = _bf16_case(rng, card, G, M, K, N, (M // G,) * G)
+    offs = torch.zeros(G + 1, dtype=torch.int32, device=card)
+    offs.copy_(gmm_ref.group_offsets(torch.full(
+        (G,), M // G, dtype=torch.int32, device=card)))
+    assert gmm_cuda.plan_ragged_bf16(M, N, K, G).route == \
+        gmm_cuda.ROUTE_WGMMA
+    gmm_cuda.gmm_ragged(lhs, rhs, offs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gmm_cuda.gmm_ragged(lhs, rhs, offs)
+    for sizes in ((M // G,) * G, (M,) + (0,) * (G - 1),
+                  tuple(int(n) for n in _routed(rng, G, M // 4, 2)),
+                  (0, 1) * (G // 2), (0,) * G):
+        offs.copy_(gmm_ref.group_offsets(torch.tensor(
+            sizes, dtype=torch.int32, device=card)))
+        graph.replay()
+        torch.cuda.synchronize()
+        covered = sum(sizes)
+        if covered:
+            _bf16_close(out[:covered], gmm_ref.grouped_matmul_looped(
+                lhs[:covered], rhs, sizes))
+        assert not bool(out[covered:].any())
+
+
 def _ragged_counts():
     return (gmm_ops.ragged_launches, gmm_ops.ragged_bwd_launches,
             gmm_ops.ragged_dw_launches)
