@@ -15,7 +15,11 @@ Phases, each printing one JSON line:
 2. ``kernel_check``: the flash-attention kernel against its plain PyTorch
    version on the card at the serving path's shapes, at the world
    model's head dims (32, and 24 in the D = 32 build), at Zamba2-7B's
-   prefill (head dim 112 in the D = 128 build) and at edge shapes,
+   prefill (head dim 112 in the D = 128 build), at Seamless-M4T-medium's
+   encoder (no mask) and cross-attention (Sq = 64 and Sq = 257 over 256
+   keys, no mask), at Phi-3-vision-4.2B's prefill (head dim 96 in the
+   D = 128 build) and at edge shapes (one at Sq > Sk, Sk ragged to the
+   kv tile),
    with times of the kernel, the plain version and one PyTorch library
    call (SDPA), the kernel's achieved TFLOP/s, and the least time the card
    could take. Times are device time per call, from CUDA events around
@@ -232,13 +236,31 @@ Phases, each printing one JSON line:
    128 build) and 81 ``ssd_chunked`` launches a prefill, none in decode;
    at a 7-layer cut, kernels against the plain attention and scan in f32
    within ``LOGITS_ATOL`` and in bf16 within ``HYBRID_BF16_ATOL``.
-15. ``kernels``: one entry per kernel, as the port's records expect;
+15. The encoder-decoder and vision families. ``encdec_lockstep``: the
+   whole Seamless-M4T-medium (12 + 12 layers) in bf16 in lock step
+   (batch 8, 256 seeded frame embeddings, 64-token prompts, 16 greedy
+   decodes): 36 flash launches a prefill (12 encoder self-attentions
+   without the mask, 12 causal decoder self-attentions, 12
+   cross-attentions), none in decode; at a 2 + 2-layer cut the kernel
+   prefill and decodes against the plain attention within
+   ``LOGITS_ATOL``. ``encdec_train``: 10 ``api.build(..., "train")``
+   steps at that cut on 4 cycled batches: the loss falls, no flash launch
+   (the plain route by design). ``vlm_lockstep``: the whole 32-layer
+   Phi-3-vision-4.2B in bf16 (batch 8, 512-token prompts whose first 64
+   positions are seeded ``patch_embeds``, 16 decodes, the fp and then the
+   int8 cache): 32 flash launches a prefill, none in decode, the int8
+   run's logit gap and greedy agreement; at a 2-layer cut the kernel
+   against the plain attention within ``LOGITS_ATOL``, and the first-token
+   logits with and without the patches apart by more than that.
+16. ``kernels``: one entry per kernel, as the port's records expect;
    ``gmm_equal`` and ``imag_fused`` also give their ``event_run``,
    ``threads_paced``, ``procs_paced``, ``threads_tcp``, ``procs_tcp_join``
    and ``chaos_run`` launches; flash attention its ``dense_lockstep``,
-   ``lm_train``, ``wm_mbrl``, ``moe_lockstep``, ``moe_serve`` and
-   ``hybrid_lockstep`` launches and its times at the world model's prefill
-   shape (``wm_path``) and Zamba2-7B's (``hybrid_path``); ``ssd_chunked``
+   ``lm_train``, ``wm_mbrl``, ``moe_lockstep``, ``moe_serve``,
+   ``hybrid_lockstep``, ``encdec_lockstep``, ``encdec_train`` and
+   ``vlm_lockstep`` launches and its times at the world model's prefill
+   shape (``wm_path``), Zamba2-7B's (``hybrid_path``), Seamless's three
+   (``encdec_path``) and Phi-3-vision's (``vlm_path``); ``ssd_chunked``
    its ``hybrid_lockstep`` launches and its times at Zamba2-7B's prefill
    (``hybrid_path``);
    ``gmm_ragged_bf16``, the bf16 route on its own, its ``moe_lockstep``
@@ -252,8 +274,9 @@ drives its path (``serve``, ``model_learn``, ``assigned_predict``,
 ``threads_profile``, ``procs_paced``, ``procs_restart``, ``procs_fleet``,
 ``threads_tcp``, ``procs_tcp_join``, ``chaos_run``,
 ``ssm_serve``, ``ssm_forward``, ``dense_lockstep``, ``lm_train``,
-``wm_mbrl``, ``moe_lockstep``, ``moe_serve``, ``hybrid_lockstep``) and
-read just after it (the procs phases' children count from 0 in their own
+``wm_mbrl``, ``moe_lockstep``, ``moe_serve``, ``hybrid_lockstep``,
+``encdec_lockstep``, ``encdec_train``, ``vlm_lockstep``) and read just
+after it (the procs phases' children count from 0 in their own
 processes and report in their heartbeats); comparison launches never
 count. The line before the
 last is the card's name and power limit from ``nvidia-smi``; the last is
@@ -521,10 +544,29 @@ ATTN_CASES = [
     # 112 in the D = 128 build, its tail zeroed
     ("zamba2_prefill_s256", 4, 256, 256, 32, 32, 112, True, 0,
      torch.bfloat16),
+    # Seamless-M4T-medium at encdec_lockstep's prefill: the encoder's
+    # self-attention without the mask, the decoder's cross-attention of its
+    # 64-token prompt over the 256 frames, and the reference's consistency
+    # shape, Sq = Sk + 1, where no output row may shift by Sk - Sq
+    ("seamless_encoder_s256", 8, 256, 256, 16, 16, 64, False, 0,
+     torch.bfloat16),
+    ("seamless_cross_q64_k256", 8, 64, 256, 16, 16, 64, False, 0,
+     torch.bfloat16),
+    ("seamless_cross_q257_k256", 8, 257, 256, 16, 16, 64, False, 0,
+     torch.bfloat16),
+    # Phi-3-vision-4.2B at vlm_lockstep's prefill: head dim 96 in the
+    # D = 128 build
+    ("phi3v_prefill_s512", 8, 512, 512, 32, 32, 96, True, 0,
+     torch.bfloat16),
+    ("edge_cross_sq150_sk100", 2, 150, 100, 4, 2, 64, False, 0,
+     torch.bfloat16),
 ]
 MAIN_PATH_CASE = "prefill_s64"
 WM_PATH_CASE = "wm_prefill_b64_s4"
 HYBRID_ATTN_CASE = "zamba2_prefill_s256"
+ENCDEC_ATTN_CASES = ("seamless_encoder_s256", "seamless_cross_q64_k256",
+                     "seamless_cross_q257_k256")
+VLM_ATTN_CASE = "phi3v_prefill_s512"
 
 
 def attention_bound_ms(q, k, v, mask) -> tuple:
@@ -561,6 +603,8 @@ def check_attention(fa_ops, fa_ref) -> dict:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if causal and not window and Sq == Sk:
             sdpa_kw = dict(is_causal=True)
+        elif not causal and not window:
+            sdpa_kw = {}  # every key visible: no mask to read
         else:
             sdpa_kw = dict(attn_mask=mask)
 
@@ -3112,21 +3156,23 @@ def _decode_run(dec, model, cache, tok, cfg, n_new, feed=None):
 
 
 def lockstep_vs_plain(cfg, model, api, InputShape, tokens, n_new,
-                      plain=None):
+                      plain=None, extra=None):
     """The comparison: the lock-step prefill through the kernels and
     through the plain routes ``plain`` names (``api.build``'s ``*_impl``;
     the plain attention by default), and ``n_new`` decodes from each cache
     fed the same greedy tokens (each decode on its own route of the moe
-    experts). Returns the largest logit differences (prefill, decode) and
-    the plain prefill's logits."""
+    experts). ``extra`` joins the prompt in the prefill's batch (frame or
+    patch embeddings). Returns the largest logit differences (prefill,
+    decode) and the plain prefill's logits."""
     plain = {"attn_impl": "ref"} if plain is None else plain
     B, S = tokens.shape
     shape = InputShape("p", S, B, "prefill")
+    batch = {"tokens": tokens, **(extra or {})}
     runs = []
     for kw in ({}, plain):
         dec = api.build(cfg, InputShape("d", S + n_new, B, "decode"),
                         gmm_impl=kw.get("gmm_impl"))
-        lg, cache = api.build(cfg, shape, **kw).fn(model, {"tokens": tokens})
+        lg, cache = api.build(cfg, shape, **kw).fn(model, batch)
         runs.append((lg, api.grow_cache(cache, S + n_new + 1), dec))
     (lg_k, cache_k, dec_k), (lg_r, cache_r, dec_r) = runs
     tok = _greedy(lg_k, cfg)
@@ -3159,9 +3205,10 @@ def _free():
 
 
 def lockstep_serving(cfg, init_params, api, InputShape, counters, B, S,
-                     n_new, kv_int8: bool) -> tuple:
+                     n_new, kv_int8: bool, extra=None) -> tuple:
     """Lock-step serving of ``cfg`` at full size through ``api.build``: two
-    prefills (cold, warm) of a batch of ``B`` random ``S``-token prompts,
+    prefills (cold, warm) of a batch of ``B`` random ``S``-token prompts
+    (with ``extra``'s tensors, frame or patch embeddings, in the batch),
     the cache grown, ``n_new`` greedy decodes; with ``kv_int8`` the int8
     cache's prefill and decodes fed the fp run's tokens. The counts in
     ``counters`` go to 0 just before and are read just after. Returns the
@@ -3176,6 +3223,7 @@ def lockstep_serving(cfg, init_params, api, InputShape, counters, B, S,
     rng = np.random.default_rng(7)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    batch = {"tokens": tokens, **(extra or {})}
     shape = InputShape("p", S, B, "prefill")
     pre = api.build(cfg, shape)
     dec = api.build(cfg, InputShape("d", S + n_new, B, "decode"))
@@ -3186,7 +3234,7 @@ def lockstep_serving(cfg, init_params, api, InputShape, counters, B, S,
         c0 = _counts(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg0, cache = pre.fn(model, {"tokens": tokens})
+        lg0, cache = pre.fn(model, batch)
         tok = _greedy(lg0, cfg)
         tok.cpu()  # the first token on the host: time to first token
         prefill_ms.append(_ms_since(t0))
@@ -3201,8 +3249,7 @@ def lockstep_serving(cfg, init_params, api, InputShape, counters, B, S,
     int8 = None
     if kv_int8:
         c0 = _counts(counters)
-        _, cache_q = api.build(cfg, shape, kv_int8=True).fn(
-            model, {"tokens": tokens})
+        _, cache_q = api.build(cfg, shape, kv_int8=True).fn(model, batch)
         int8_prefill = _since(counters, c0)
         cache_q = api.grow_cache(cache_q, S + n_new + 1)
         c0 = _counts(counters)
@@ -3903,6 +3950,177 @@ def hybrid_lockstep(CONFIG, init_params, api, InputShape, fa_ops,
             f"l{HYBRID_CUT_LAYERS}_kernel_vs_plain": errs}
 
 
+# ---------------------------------------------------------------- phase 15
+
+# Seamless-M4T-medium: batch 8, 256 frames of the stubbed audio frontend,
+# 64-token prompts, 16 decodes; its 2 + 2-layer cut for the comparisons and
+# the train step (10 steps on 4 cycled batches; the loss must fall)
+ENCDEC_LOCKSTEP = dict(batch=8, frames=256, prompt=64, new=16)
+ENCDEC_CUT_LAYERS = 2
+ENCDEC_TRAIN = dict(batch=8, seq=64, steps=10, batches=4)
+# Phi-3-vision-4.2B: batch 8, 512-token prompts whose first 512 // 8 = 64
+# positions are patch embeddings (the reference's n_patch), 16 decodes
+VLM_LOCKSTEP = dict(batch=8, prompt=512, new=16)
+VLM_CUT_LAYERS = 2
+
+
+def _embeds(B, rows, d, seed):
+    """Seeded bf16 frame or patch embeddings ``(B, rows, d)`` on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((B, rows, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+
+def encdec_lockstep(CONFIG, api, InputShape, fa_ops, E) -> dict:
+    """Lock-step serving of the whole Seamless-M4T-medium (12 encoder + 12
+    decoder layers) in bf16 through ``api.build``
+    (``lockstep_serving``): batch 8, 256 seeded frame embeddings, 64-token
+    prompts, the self cache grown for 16 greedy decodes. A prefill
+    launches the flash kernel 36 times (12 encoder self-attentions without
+    the mask, 12 causal decoder self-attentions, 12 cross-attentions of 64
+    queries over 256 keys without the mask), a decode none (its attention
+    is plain, as in the reference). Then, after the counts are read, the
+    kernel's prefill and decodes against the plain attention's at a 2 +
+    2-layer cut of the full width within ``LOGITS_ATOL``."""
+    cfg = CONFIG
+    B, F, S, n_new = (ENCDEC_LOCKSTEP[k]
+                      for k in ("batch", "frames", "prompt", "new"))
+    frames = {"enc_embeds": _embeds(B, F, cfg.d_model, 11)}
+    model, out, readings = lockstep_serving(
+        cfg, E.init_params, api, InputShape, {"flash": (fa_ops, "launches")},
+        B, S, n_new, False, extra=frames)
+    per_prefill = E._enc_layers(cfg) + 2 * cfg.num_layers
+    lockstep_checks("encdec_lockstep", cfg, out, readings,
+                    {"flash": per_prefill}, {"flash": 0})
+    cross = out["cache"]["cross_k"]
+    if tuple(cross.shape[1:3]) != (B, F):
+        raise RuntimeError(f"encdec_lockstep: cross cache {tuple(cross.shape)}"
+                           f" is not over the {F} frames")
+    tokens = out["tokens"]
+    del model, out
+    _free()
+    cut = dataclasses.replace(cfg, num_layers=ENCDEC_CUT_LAYERS,
+                              encoder_layers=ENCDEC_CUT_LAYERS,
+                              name=f"{cfg.name}-l{ENCDEC_CUT_LAYERS}")
+    cut_model = E.init_params(cut, 3)
+    pre, dec, lg_ref = lockstep_vs_plain(cut, cut_model, api, InputShape,
+                                         tokens, n_new, extra=frames)
+    del cut_model
+    _free()
+    if not max(pre, dec) <= LOGITS_ATOL:
+        raise RuntimeError(f"encdec_lockstep: {ENCDEC_CUT_LAYERS} + "
+                           f"{ENCDEC_CUT_LAYERS} layers, logits kernel vs "
+                           f"plain {pre} {dec} > {LOGITS_ATOL}")
+    return {**readings, "encoder_layers": E._enc_layers(cfg),
+            "frames": F, "head_dim": cfg.hd,
+            f"l{ENCDEC_CUT_LAYERS}_prefill_max_abs_err": pre,
+            f"l{ENCDEC_CUT_LAYERS}_decode_max_abs_err": dec,
+            "atol": LOGITS_ATOL, "logits_std": lg_ref.std().item()}
+
+
+def encdec_train(CONFIG, api, InputShape, LM, E, adam, fa_ops) -> dict:
+    """``api.build(..., "train")`` on Seamless-M4T-medium's 2 + 2-layer cut
+    at full width in bf16: 10 steps over 4 seeded batches (random frames,
+    tokens, labels equal to tokens), cycled; the loss must fall. The step
+    trains through the plain attention by design (the kernel is
+    forward-only, as the reference's has no backward), so the kernel is
+    launched no time."""
+    cfg = dataclasses.replace(CONFIG, num_layers=ENCDEC_CUT_LAYERS,
+                              encoder_layers=ENCDEC_CUT_LAYERS,
+                              name=f"{CONFIG.name}-l{ENCDEC_CUT_LAYERS}")
+    B, S, steps = (ENCDEC_TRAIN[k] for k in ("batch", "seq", "steps"))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batches = []
+    for i in range(ENCDEC_TRAIN["batches"]):
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        batches.append({"tokens": tokens, "labels": tokens,
+                        "enc_embeds": _embeds(B, S, cfg.d_model, 20 + i)})
+    bundle = api.build(cfg, InputShape("t", S, B, "train"))
+    model = E.init_params(cfg, 0)
+    opt_state = adam(cfg.lr).init(LM.trainable(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launches = 0
+    losses, step_ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        model, opt_state, m = bundle.fn(model, opt_state,
+                                        batches[i % len(batches)])
+        losses.append(float(m["loss"]))
+        step_ms.append(_ms_since(t0))
+    launches = fa_ops.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gnorm = float(m["gnorm"])
+    del model, opt_state, bundle
+    _free()
+    checks = {
+        "loss fell": losses[-1] < losses[0],
+        "finite": bool(np.isfinite(losses + [gnorm]).all()),
+        "no flash launch (plain attention by design)": launches == 0,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"encdec_train failed: {failed}; losses "
+                           f"{losses}, launches {launches}")
+    warm = sorted(step_ms[1:])
+    return {"config": cfg.name, "dtype": cfg.dtype, "batch": B, "seq": S,
+            "steps": steps, "lr": cfg.lr,
+            "batches_cycled": ENCDEC_TRAIN["batches"], "losses": losses,
+            "gnorm_last": gnorm, "step_ms_first": step_ms[0],
+            "step_ms_p50": warm[len(warm) // 2], "peak_mem_gb": peak,
+            "attention_launches": launches}
+
+
+def vlm_lockstep(CONFIG, init_params, api, InputShape, fa_ops) -> dict:
+    """Lock-step serving of the whole 32-layer Phi-3-vision-4.2B in bf16
+    (``lockstep_serving``): batch 8, 512-token prompts whose first 64
+    positions are seeded patch embeddings, 16 greedy decodes, with the fp
+    cache and then the int8 cache fed the same tokens: 32 flash launches a
+    prefill (head dim 96 in the D = 128 build), none in decode. Then,
+    after the counts are read, at a 2-layer cut of the full width: the
+    kernel's prefill and decodes against the plain attention's within
+    ``LOGITS_ATOL``, and the first-token logits of the batch with patches
+    against the same tokens without them, which must differ (the frontend
+    is on the path)."""
+    cfg = CONFIG
+    B, S, n_new = (VLM_LOCKSTEP[k] for k in ("batch", "prompt", "new"))
+    patches = {"patch_embeds": _embeds(B, S // 8, cfg.d_model, 12)}
+    model, out, readings = lockstep_serving(
+        cfg, init_params, api, InputShape, {"flash": (fa_ops, "launches")},
+        B, S, n_new, True, extra=patches)
+    lockstep_checks("vlm_lockstep", cfg, out, readings,
+                    {"flash": cfg.num_layers}, {"flash": 0})
+    tokens = out["tokens"]
+    del model, out
+    _free()
+    cut = dataclasses.replace(cfg, num_layers=VLM_CUT_LAYERS,
+                              name=f"{cfg.name}-l{VLM_CUT_LAYERS}")
+    cut_model = init_params(cut, 3)
+    pre, dec, lg_ref = lockstep_vs_plain(cut, cut_model, api, InputShape,
+                                         tokens, n_new, extra=patches)
+    prefill = api.build(cut, InputShape("p", S, B, "prefill")).fn
+    with_p, _ = prefill(cut_model, {"tokens": tokens, **patches})
+    without, _ = prefill(cut_model, {"tokens": tokens})
+    patch_gap = (with_p - without).abs().max().item()
+    del cut_model
+    _free()
+    checks = {
+        f"{VLM_CUT_LAYERS} layers: prefill and decode logits kernel vs "
+        "plain within LOGITS_ATOL": max(pre, dec) <= LOGITS_ATOL,
+        "patch_embeds move the first-token logits": patch_gap > LOGITS_ATOL,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"vlm_lockstep failed: {failed}; errors {pre} "
+                           f"{dec}, patch gap {patch_gap}")
+    return {**readings, "n_patch": S // 8, "head_dim": cfg.hd,
+            f"l{VLM_CUT_LAYERS}_prefill_max_abs_err": pre,
+            f"l{VLM_CUT_LAYERS}_decode_max_abs_err": dec,
+            "atol": LOGITS_ATOL, "logits_std": lg_ref.std().item(),
+            "patch_logit_gap": patch_gap}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -3912,6 +4130,8 @@ def main() -> int:
     from repro_torch.configs.glm4_9b import CONFIG
     from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA
     from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG as MOONLIGHT
+    from repro_torch.configs.phi3_vision_4_2b import CONFIG as PHI3V
+    from repro_torch.configs.seamless_m4t_medium import CONFIG as SEAMLESS
     from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2
     from repro_torch.core import AsyncTrainer, SequentialTrainer
     from repro_torch.core.servers import DataServer, ParameterServer
@@ -3929,6 +4149,7 @@ def main() -> int:
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.models import api
+    from repro_torch.models import encdec as E
     from repro_torch.models import lm as LM
     from repro_torch.models import moe as MOE
     from repro_torch.data.synthetic import DynamicsTokenStream
@@ -4095,6 +4316,13 @@ def main() -> int:
     hybrid = hybrid_lockstep(ZAMBA2, init_params, api, InputShape, fa_ops,
                              ssd_ops, LM)
     emit({"phase": "hybrid_lockstep", **hybrid})
+    encdec = encdec_lockstep(SEAMLESS, api, InputShape, fa_ops, E)
+    emit({"phase": "encdec_lockstep", **encdec})
+    encdec_trained = encdec_train(SEAMLESS, api, InputShape, LM, E, adam,
+                                  fa_ops)
+    emit({"phase": "encdec_train", **encdec_trained})
+    vlm = vlm_lockstep(PHI3V, init_params, api, InputShape, fa_ops)
+    emit({"phase": "vlm_lockstep", **vlm})
 
     main_row = rows[MAIN_PATH_CASE]
     wm_row = rows[WM_PATH_CASE]
@@ -4114,6 +4342,9 @@ def main() -> int:
         "launches_moe_lockstep": moe["launches"]["flash"],
         "launches_moe_serve": moe_served["attention_launches"],
         "launches_hybrid_lockstep": hybrid["launches"]["flash"],
+        "launches_encdec_lockstep": encdec["launches"]["flash"],
+        "launches_encdec_train": encdec_trained["attention_launches"],
+        "launches_vlm_lockstep": vlm["launches"]["flash"],
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4124,7 +4355,13 @@ def main() -> int:
             "library_ms", "max_abs_err")} | {"case": WM_PATH_CASE},
         "hybrid_path": {k: rows[HYBRID_ATTN_CASE][k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "max_abs_err")} | {"case": HYBRID_ATTN_CASE}}, {
+            "library_ms", "max_abs_err")} | {"case": HYBRID_ATTN_CASE},
+        "encdec_path": {case: {k: rows[case][k] for k in (
+            "shape", "causal", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")} for case in ENCDEC_ATTN_CASES},
+        "vlm_path": {k: rows[VLM_ATTN_CASE][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")} | {"case": VLM_ATTN_CASE}}, {
         "name": "gmm_equal", "route": "cuda",
         "source": str(gmm_cuda.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/gmm/pallas.py:47",

@@ -1,10 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Port of ``repro/configs/registry.py``. Every id of the reference resolves;
-the dense, ssm, moe and hybrid decoders are ported, and the two left (the
-encoder-decoder ``seamless_m4t_medium`` and the vision model
-``phi3_vision_4_2b``) raise and point at ROADMAP.md, which lists what is
-still to port.
+Port of ``repro/configs/registry.py``. Every id of the reference resolves,
+as there: the dense, vision (``phi3_vision_4_2b``), ssm, moe, hybrid and
+encoder-decoder (``seamless_m4t_medium``) archs.
 """
 from __future__ import annotations
 
@@ -26,10 +24,6 @@ ARCH_IDS = [
     "mamba2_2_7b",
 ]
 
-PORTED = {"glm4_9b", "granite_3_8b", "qwen3_14b", "mamba2_2_7b",
-          "mixtral_8x7b", "moonshot_v1_16b_a3b", "qwen3_moe_235b_a22b",
-          "zamba2_7b"}
-
 # CLI ids (dashes) -> module names
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 ALIASES.update({
@@ -46,9 +40,8 @@ ALIASES.update({
 })
 
 
-# long_500k applicability of the ported archs: "native" (sub-quadratic as
-# published) or "window" (run with the documented sliding-window variant);
-# the reference's table also names the archs still to port
+# long_500k applicability: "native" (sub-quadratic as published), "window"
+# (run with the documented sliding-window variant), or "skip"
 LONG_CONTEXT = {
     "mamba2_2_7b": "native",
     "zamba2_7b": "native",
@@ -57,7 +50,9 @@ LONG_CONTEXT = {
     "qwen3_14b": "window",
     "granite_3_8b": "window",
     "qwen3_moe_235b_a22b": "window",
+    "phi3_vision_4_2b": "window",
     "moonshot_v1_16b_a3b": "window",
+    "seamless_m4t_medium": "skip",   # an encoder-decoder speech model
 }
 
 LONG_WINDOW = 4096
@@ -77,15 +72,15 @@ def get_config(arch_id: str, *, reduced: bool = False,
     """The config of ``arch_id``. ``long_context`` gives the full-size
     sliding-window variant (``attn_window=LONG_WINDOW``, name ``+swa``)
     of the archs that run long contexts that way, as the reference does:
-    the dense family's way into the ring cache (kind "W")."""
+    the dense family's way into the ring cache (kind "W"). An arch that
+    does not run long contexts (``"skip"``) raises ValueError there, as in
+    the reference."""
     name = normalize(arch_id)
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet (ported: "
-            f"{sorted(PORTED)}); see ROADMAP.md, open items")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     cfg = mod.REDUCED if reduced else mod.CONFIG
     if long_context and not reduced:
+        if LONG_CONTEXT[name] == "skip":
+            raise ValueError(f"{arch_id}: long_500k not applicable")
         if LONG_CONTEXT[name] == "window" and not cfg.attn_window:
             cfg = dataclasses.replace(cfg, attn_window=LONG_WINDOW,
                                       name=cfg.name + "+swa")

@@ -11,8 +11,9 @@
 // Kv tiles that the causal mask or the window hide from every row of a q
 // tile are skipped: a row that sees at least one key gets exactly the result
 // of visiting them, because a masked score contributes exp(-1e30 - m) = 0
-// once m is real. The wrapper refuses Sq > Sk, the only shapes that leave a
-// row with no key at all.
+// once m is real. Under causal masking the wrapper refuses Sq > Sk, the only
+// shapes that leave a row with no key at all; without it (cross-attention)
+// Sq > Sk runs, the offset Sk - Sq then read by no mask and no tile bound.
 //
 // The TPU kernel walks kv blocks as the sequential "arbitrary" grid axis and
 // carries m/l/acc in VMEM scratch between grid steps. Blocks on the GPU run

@@ -44,7 +44,7 @@ def instance_dim(D: int) -> int:
     return next(i for i in INSTANCE_DIMS if D <= i)
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, causal: bool) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention kernel: {name} is on "
@@ -74,7 +74,7 @@ def _check(q, k, v) -> None:
         raise ValueError(f"q heads {Hq} not a multiple of kv heads "
                          f"{k.shape[2]}")
     instance_dim(D)
-    if Sq > k.shape[1]:
+    if causal and Sq > k.shape[1]:
         raise ValueError(f"flash_attention kernel needs Sq <= Sk (got "
                          f"{Sq} > {k.shape[1]}): a query row left without "
                          "any key has no defined output")
@@ -84,10 +84,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q.dtype.
 
+    Sq > Sk (cross-attention) runs without the causal mask only.
     Launches the kernel on the current stream and does not synchronise.
     Raises ValueError on inputs the kernel does not take and RuntimeError
     if the launch is refused."""
-    _check(q, k, v)
+    _check(q, k, v, causal)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5

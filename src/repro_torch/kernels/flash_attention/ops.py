@@ -50,8 +50,10 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D).
 
     ``impl``: None picks by device (kernel on CUDA, ref on CPU); "cuda"
-    insists on the kernel; "ref" runs the plain version anywhere."""
-    if q.shape[1] > k.shape[1]:
+    insists on the kernel; "ref" runs the plain version anywhere. Sq > Sk
+    (cross-attention) is taken without the causal mask, where every query
+    row sees every key, and refused with it."""
+    if causal and q.shape[1] > k.shape[1]:
         raise ValueError(f"attention needs Sq <= Sk (got {q.shape[1]} > "
                          f"{k.shape[1]}): a query row left without any key "
                          "has no defined output")

@@ -9,8 +9,10 @@ or one of the synchronous engines::
         --algo me-trpo --engine async --trajs 60
 
 ``--task lm``: the LM trainer, ``api.build(..., "train")`` on random
-tokens for ``--steps`` steps, for the dense and ssm families (the moe and
-hybrid families serve but do not train yet)::
+tokens for ``--steps`` steps, for the dense, vlm, ssm and encdec families
+(the encdec's batch adds random frame embeddings, a vision model's random
+patch embeddings over the first ``--seq // 8`` positions, as in the
+reference; the moe and hybrid families serve but do not train yet)::
 
     python -m repro_torch.launch.train --task lm --arch glm4-9b --reduced \\
         --steps 10
@@ -28,9 +30,9 @@ collectors::
         --transport tcp --bind 0.0.0.0:7447 --trajs 60
     python -m repro_torch.launch.train --connect trainer-host:7447
 
-What is not ported exits with a message that names ROADMAP.md: ``--mesh``,
-``--task lm`` on the moe and hybrid archs (whose train step is refused)
-and on the encdec and vlm archs (whose configs are).
+What is not ported exits with a message that names ROADMAP.md: ``--mesh``
+and ``--task lm`` on the moe and hybrid archs (whose train step is
+refused).
 """
 from __future__ import annotations
 
@@ -151,7 +153,9 @@ def run_join(args):
 
 def run_lm(args):
     """``--task lm``: ``--steps`` train steps of ``--arch`` on random tokens
-    (labels equal to tokens, as in the reference). Returns the losses."""
+    (labels equal to tokens, as in the reference), with bf16 frame or patch
+    embeddings drawn by the same generator where the family takes them
+    (the reference's ``batch_for``). Returns the losses."""
     import torch
 
     from repro_torch import resolve_device
@@ -168,16 +172,24 @@ def run_lm(args):
         bundle = api.build(cfg, shape, device=dev)
     except NotImplementedError as err:
         raise SystemExit(f"--task lm --arch {args.arch}: {err}") from None
-    params = LM.init_params(cfg, args.seed, device=dev)
+    params = api._mod(cfg).init_params(cfg, args.seed, device=dev)
     opt_state = adam(cfg.lr).init(LM.trainable(params))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def embeds(rows):
+        return torch.randn((args.batch, rows, cfg.d_model), generator=gen,
+                           device=dev).to(torch.bfloat16)
     losses = []
     for step in range(args.steps):
         tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
                                generator=gen, device=dev,
                                dtype=torch.int32)
-        params, opt_state, m = bundle.fn(
-            params, opt_state, {"tokens": tokens, "labels": tokens})
+        batch = {"tokens": tokens, "labels": tokens}
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = embeds(args.seq)
+        if cfg.modality == "vision":
+            batch["patch_embeds"] = embeds(args.seq // 8)
+        params, opt_state, m = bundle.fn(params, opt_state, batch)
         losses.append(float(m["loss"]))
         if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
             print(f"step {step:4d} loss {losses[-1]:.4f} "

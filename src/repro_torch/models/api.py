@@ -6,11 +6,12 @@ that counts the distinct input shapes it has seen (``shape_count``). That
 keeps the serving invariants assertable: one decode shape forever and at
 most one prefill shape per prompt bucket.
 
-``build`` makes the lock-step prefill and decode steps (the dense, ssm,
-moe and hybrid families; fp or int8 KV caches on dense and moe) and the
-microbatched train step (dense and ssm);
+``build`` makes the lock-step prefill and decode steps (the dense, vlm,
+ssm, moe, hybrid and encdec families; fp or int8 KV caches on dense, vlm
+and moe) and the microbatched train step (dense, vlm, ssm and encdec);
 ``build_serve_prefill`` / ``build_serve_decode`` make the slot-pool steps
-of the continuous-batching serve tier (the dense and moe families);
+of the continuous-batching serve tier (the dense, vlm and moe families;
+the others raise ValueError, as in the reference);
 ``as_predict_fn`` pins a world model to the MBRL predict contract.
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import lm as LM
 from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.optim.optimizers import adam
@@ -80,6 +82,12 @@ def grow_cache(cache, to_len: int):
     return out
 
 
+def _mod(cfg: ModelConfig):
+    """The module of ``cfg``'s family: ``init_params``, ``init_cache``,
+    ``make_prefill``, ``make_decode`` and ``loss_forward``."""
+    return E if cfg.family == "encdec" else LM
+
+
 def build(cfg: ModelConfig, shape: InputShape, *, device=None,
           kv_int8: bool = False, attn_impl: str | None = None,
           ssd_impl: str | None = None,
@@ -87,8 +95,10 @@ def build(cfg: ModelConfig, shape: InputShape, *, device=None,
     """The step of ``shape.kind``:
 
     * ``"prefill"``: ``bundle.fn(params, batch) -> (logits, cache)``, batch
-      ``{"tokens": (B, S)}``, the cache laid out for ``shape.seq_len``
-      tokens (int8 when ``kv_int8``, dense and moe families).
+      ``{"tokens": (B, S)}`` (with ``"enc_embeds"`` ``(B, S_enc, d)`` for
+      the encdec family; optionally ``"patch_embeds"`` ``(B, n_patch, d)``
+      for a vision model), the cache laid out for ``shape.seq_len``
+      tokens (int8 when ``kv_int8``, dense, vlm and moe families).
       ``attn_impl="ref"`` / ``ssd_impl="ref"`` / ``gmm_impl="ref"`` run the
       plain attention / scan / expert products instead of the kernels (for
       the on-card comparison only);
@@ -99,20 +109,32 @@ def build(cfg: ModelConfig, shape: InputShape, *, device=None,
       opt_state, {"loss", "gnorm"})`` with Adam at ``cfg.lr`` (``opt_state
       = adam(cfg.lr).init(LM.trainable(params))``) over
       ``pick_microbatches`` microbatches, through the plain attention and
-      scan (``LM.make_train_step``); the moe and hybrid families raise
-      (ROADMAP.md)."""
+      scan (``LM.make_train_step``; the encdec family's loss is
+      ``encdec.loss_forward``); the moe and hybrid families raise
+      (ROADMAP.md).
+
+    The encdec family's params come from ``encdec.init_params`` (any
+    family's: ``_mod(cfg).init_params``); it takes ``attn_impl`` only."""
     dev = resolve_device(device)
     nm = 1
     quant = kv_int8 and cfg.family in ("dense", "vlm", "moe")
+    encdec = cfg.family == "encdec"
     if shape.kind == "prefill":
-        fn = LM.make_prefill(cfg, shape.seq_len, kv_int8=quant,
-                             attn_impl=attn_impl, ssd_impl=ssd_impl,
-                             gmm_impl=gmm_impl)
+        fn = (E.make_prefill(cfg, shape.seq_len, attn_impl=attn_impl)
+              if encdec else
+              LM.make_prefill(cfg, shape.seq_len, kv_int8=quant,
+                              attn_impl=attn_impl, ssd_impl=ssd_impl,
+                              gmm_impl=gmm_impl))
     elif shape.kind == "decode":
-        fn = LM.make_decode(cfg, gmm_impl=gmm_impl)
+        fn = (E.make_decode(cfg) if encdec
+              else LM.make_decode(cfg, gmm_impl=gmm_impl))
     elif shape.kind == "train":
         nm = pick_microbatches(cfg, shape)
-        fn = LM.make_train_step(cfg, adam(cfg.lr), nm)
+        loss_fwd = None
+        if encdec:
+            def loss_fwd(p, b):
+                return E.loss_forward(cfg, p, b, attn_impl="ref")
+        fn = LM.make_train_step(cfg, adam(cfg.lr), nm, loss_fwd=loss_fwd)
     else:
         raise ValueError(f"unknown step kind {shape.kind!r}")
     return StepBundle(shape.kind, ShapeCounted(fn), cfg, shape, dev, nm)

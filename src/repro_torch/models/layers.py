@@ -113,14 +113,14 @@ def _qkv(cfg: ModelConfig, p, h, positions):
     return q, k, v
 
 
-def attn_forward(cfg: ModelConfig, p, x, positions, *,
+def attn_forward(cfg: ModelConfig, p, x, positions, *, causal: bool = True,
                  return_kv: bool = False, attn_impl: str | None = None):
-    """Causal full-sequence attention (prefill). x: (B, S, d).
-    ``attn_impl`` is passed to ``ops.attention`` (None: the kernel on CUDA
-    tensors)."""
+    """Full-sequence self-attention (train / prefill), causal unless the
+    caller (the encoder) says otherwise. x: (B, S, d). ``attn_impl`` is
+    passed to ``ops.attention`` (None: the kernel on CUDA tensors)."""
     h = rmsnorm(x, p["ln"])
     q, k, v = _qkv(cfg, p, h, positions)
-    o = attn_ops.attention(q, k, v, causal=True, window=cfg.attn_window,
+    o = attn_ops.attention(q, k, v, causal=causal, window=cfg.attn_window,
                            impl=attn_impl)
     B, S = x.shape[:2]
     out = x + matmul(o.reshape(B, S, -1), p["wo"])

@@ -1,11 +1,11 @@
-"""Decoder LM: the port of ``repro/models/lm.py`` for the dense, ssm, moe
-and hybrid families.
+"""Decoder LM: the port of ``repro/models/lm.py`` for the dense, vlm, ssm,
+moe and hybrid families (the encoder-decoder is ``models/encdec.py``).
 
 Parameters live in :class:`LM`, an ``nn.Module`` tree of frozen tensors::
 
   embed.{table, head, ln_f}
   layers.<i>.attn.{ln, wq, wk, wv, wo[, q_norm, k_norm]}     (dense, moe)
-  layers.<i>.mlp.{ln, w1, w2[, w3]}                          (dense)
+  layers.<i>.mlp.{ln, w1, w2[, w3]}                          (dense, vlm)
   layers.<i>.moe.{ln, router, we1, we3, we2}                 (moe)
   layers.<i>.mamba.{ln, wz, wx, wbc, wdt, conv_x, ...}       (ssm, hybrid)
   shared.{attn, mlp}                                         (hybrid)
@@ -34,9 +34,12 @@ Two cache layouts:
   ``(n_inv, B, S, KV, hd)`` over the shared block's invocations, with
   ``pos``.
 
-Decode writes into a cache in place, where the reference donates it to a
-jit. ``make_train_step`` is the reference's microbatched step on one card,
-for the dense and ssm families; it trains by autograd of the plain
+The vlm family is the dense one with the vision frontend's stub in
+``embed_inputs`` (``patch_embeds`` take the first positions). Decode
+writes into a cache in place, where the reference donates it to a jit.
+``make_train_step`` is the reference's microbatched step on one card,
+for the dense, vlm and ssm families (and the encdec's, given its
+``loss_fwd``); it trains by autograd of the plain
 attention and scan, the reference's own gradient route (its Pallas kernels
 have no ``custom_vjp``). The moe and hybrid families serve and do not
 train yet (ROADMAP.md).
@@ -78,6 +81,28 @@ class Params(nn.Module):
         return getattr(self, name)
 
 
+def nest_state(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """A flat state dict (``layers.0.attn.wq``...) -> the tree ``Params``
+    takes: dotted keys nest into dicts, and a dict keyed ``0..n-1`` (a
+    ``ModuleList``'s children) becomes a list. The tensors are not
+    copied."""
+    tree: Dict[str, Any] = {}
+    for key, val in state.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(tree)
+
+
 class LM(Params):
     """The parameters of one decoder LM, with its config."""
 
@@ -88,16 +113,7 @@ class LM(Params):
     @classmethod
     def from_state_dict(cls, cfg: ModelConfig, state: Mapping[str, Any]):
         """Build the module around the tensors of ``state`` (no copy)."""
-        tree: Dict[str, Any] = {}
-        for key, val in state.items():
-            node = tree
-            *path, leaf = key.split(".")
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = val
-        tree["layers"] = [tree["layers"][str(i)]
-                          for i in range(len(tree["layers"]))]
-        return cls(cfg, tree)
+        return cls(cfg, nest_state(state))
 
     @property
     def device(self) -> torch.device:
@@ -238,7 +254,14 @@ def _hybrid_forward(cfg: ModelConfig, params: LM, x, positions, *,
 
 
 def embed_inputs(cfg: ModelConfig, params: LM, batch):
+    """Token embeddings and positions. The vision frontend's stub: where
+    ``cfg.modality == "vision"`` and the batch holds ``patch_embeds`` ``(B,
+    n_patch, d)``, those replace the first ``n_patch`` token embeddings,
+    cast to the model's dtype."""
     x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
+    if cfg.modality == "vision" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     return x, torch.arange(x.shape[1], device=x.device)
 
 

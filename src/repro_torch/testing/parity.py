@@ -1,12 +1,14 @@
 """Converters from the reference's parameter pytrees to the port's.
 
 The tests build params with the JAX package, turn the tree into numpy
-arrays (``np.asarray`` on the JAX side), and hand it here. Two layouts:
+arrays (``np.asarray`` on the JAX side), and hand it here. Three layouts:
 
-* the LM (``state_from_jax``): the stacked ``layers`` axis is unstacked
-  into the port's per-layer ``ModuleList``, so ``layers/attn/wq[i]``
-  becomes ``layers.i.attn.wq`` (and a moe layer's ``layers/moe/we1[i]``
-  ``layers.i.moe.we1``); the hybrid's ``shared`` block keeps its tree;
+* the LM and the encoder-decoder (``state_from_jax``): each stacked
+  layer axis is unstacked into the port's per-layer ``ModuleList``, so
+  ``layers/attn/wq[i]`` becomes ``layers.i.attn.wq`` (a moe layer's
+  ``layers/moe/we1[i]`` ``layers.i.moe.we1``, the encdec's
+  ``dec_layers/cross/wq[i]`` ``dec_layers.i.cross.wq``); the hybrid's
+  ``shared`` block and the encdec's ``enc_ln`` keep their trees;
 * the transformer world model (``world_model_from_jax``): a
   ``WorldModelDynamics``' LM parameters, normaliser and Adam state, the
   moments keyed by the port's parameter names;
@@ -48,26 +50,41 @@ def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, Any]):
             out[key] = val
 
 
+# the reference's parameter groups: kept whole, or stacked on axis 0 over
+# the layers (the decoder LM's ``layers``, the encdec's two stacks)
+WHOLE_GROUPS = ("embed", "shared", "enc_ln")
+STACKED_GROUPS = ("layers", "enc_layers", "dec_layers")
+
+
 def state_from_jax(tree: Mapping[str, Any], device="cpu"
                    ) -> Dict[str, torch.Tensor]:
-    """``{"embed": ..., "layers": <stacked>[, "shared": ...]}`` numpy tree
-    -> the port's ``LM.state_dict()`` layout (``embed.table``,
-    ``layers.0.attn.wq``, ``shared.attn.wq``...)."""
-    flat: Dict[str, Any] = {}
-    _flatten(tree["embed"], "embed.", flat)
-    if "shared" in tree:
-        _flatten(tree["shared"], "shared.", flat)
-    stacked: Dict[str, Any] = {}
-    _flatten(tree["layers"], "", stacked)
-    n_layers = {np.asarray(v).shape[0] for v in stacked.values()}
-    if len(n_layers) != 1:
-        raise ValueError(f"stacked layer leaves disagree on depth: {n_layers}")
-    for i in range(n_layers.pop()):
-        for key, val in stacked.items():
-            flat[f"layers.{i}.{key}"] = np.asarray(val)[i]
-    extra = set(tree) - {"embed", "layers", "shared"}
+    """A reference parameter tree of numpy arrays -> the port's
+    ``state_dict()`` layout. The LM's ``{"embed", "layers"[, "shared"]}``
+    gives ``embed.table``, ``layers.0.attn.wq``, ``shared.attn.wq``...;
+    the encdec's ``{"embed", "enc_layers", "dec_layers", "enc_ln"}`` gives
+    ``enc_layers.0.attn.wq``, ``dec_layers.0.cross.wq``, ``enc_ln``...
+    (``lm.LM.from_state_dict`` and ``lm.nest_state`` build the modules)."""
+    extra = set(tree) - set(WHOLE_GROUPS) - set(STACKED_GROUPS)
     if extra:
         raise ValueError(f"no port for parameter groups {sorted(extra)}")
+    flat: Dict[str, Any] = {}
+    for group in WHOLE_GROUPS:
+        if isinstance(tree.get(group), Mapping):
+            _flatten(tree[group], group + ".", flat)
+        elif group in tree:
+            flat[group] = tree[group]
+    for group in STACKED_GROUPS:
+        if group not in tree:
+            continue
+        stacked: Dict[str, Any] = {}
+        _flatten(tree[group], "", stacked)
+        n_layers = {np.asarray(v).shape[0] for v in stacked.values()}
+        if len(n_layers) != 1:
+            raise ValueError(f"stacked {group} leaves disagree on depth: "
+                             f"{n_layers}")
+        for i in range(n_layers.pop()):
+            for key, val in stacked.items():
+                flat[f"{group}.{i}.{key}"] = np.asarray(val)[i]
     return {k: to_tensor(v, device) for k, v in flat.items()}
 
 

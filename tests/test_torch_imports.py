@@ -61,9 +61,15 @@ SLICE9 = ["data/__init__.py", "data/synthetic.py", "mbrl/wm_dynamics.py"]
 SLICE10 = ["models/moe.py", "configs/mixtral_8x7b.py",
            "configs/moonshot_v1_16b_a3b.py", "configs/qwen3_moe_235b_a22b.py",
            "configs/zamba2_7b.py"]
+# the encoder-decoder and vision slice (it extends models/layers.py,
+# models/lm.py, models/api.py, kernels/flash_attention/, configs/registry.py,
+# testing/parity.py and launch/train.py)
+SLICE12 = ["models/encdec.py", "configs/seamless_m4t_medium.py",
+           "configs/phi3_vision_4_2b.py"]
 EXAMPLES = ["torch_quickstart.py", "torch_pr2_arm.py",
             "torch_async_vs_sync.py", "torch_train_world_model.py",
-            "torch_wm_imagination.py", "torch_serve_world_model.py"]
+            "torch_wm_imagination.py", "torch_serve_world_model.py",
+            "torch_encdec_serve.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -83,7 +89,8 @@ def test_no_jax_or_reference_import(path):
 
 
 @pytest.mark.parametrize("module", SLICE2 + SLICE3 + SLICE4 + SLICE5
-                         + SLICE6 + SLICE8 + SLICE9 + SLICE10)
+                         + SLICE6 + SLICE8 + SLICE9 + SLICE10
+                         + SLICE12)
 def test_slice_module_is_scanned(module):
     assert PORT / module in FILES
 

@@ -39,6 +39,12 @@ ATTN_CASES = [
     (4, 52, 52, 4, 4, 32, True, 0),       # head dim 32: the world model
     (3, 33, 40, 4, 2, 24, True, 16),      # head dim 24, in the D = 32 build
     (4, 256, 256, 32, 32, 112, True, 0),  # Zamba2-7B's, in the D = 128 build
+    (2, 256, 256, 16, 16, 64, False, 0),  # Seamless-M4T's encoder
+    (2, 257, 256, 16, 16, 64, False, 0),  # its cross-attention, Sq > Sk
+    (2, 64, 256, 16, 16, 64, False, 0),   # and at Sq < Sk
+    (2, 128, 128, 32, 32, 96, True, 0),   # Phi-3-vision's, in the D = 128 build
+    (2, 128, 128, 32, 32, 96, False, 0),  # head dim 96 without the mask
+    (1, 150, 100, 4, 2, 64, False, 0),    # Sq > Sk, Sk ragged to the kv tile
 ]
 
 
@@ -148,6 +154,31 @@ def test_flash_attention_padded_head_dim_writes_only_its_columns(card, d,
                                want.float().cpu().numpy(),
                                atol=ATOL[dtype], rtol=ATOL[dtype])
     assert bool((buf[n:] == 7.0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_more_queries_than_keys_only_unmasked(card,
+                                                                    dtype):
+    """Cross-attention's Sq > Sk: without the causal mask the kernel runs,
+    every output row i equal to the plain version's row i (no row shifted
+    by Sk - Sq); with it, ``cuda.flash_attention`` raises before a
+    launch."""
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card, dtype) for shape in
+        ((2, 77, 4, 64), (2, 33, 4, 64), (2, 33, 4, 64)))
+    got = fa_cuda.flash_attention(q, k, v, causal=False)
+    want = fa_ref.naive_attention(q, k, v, causal=False)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=ATOL[dtype], rtol=ATOL[dtype])
+    before = fa_ops.launches
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        fa_cuda.flash_attention(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        fa_ops.attention(q, k, v, causal=True)
+    assert fa_ops.launches == before
 
 
 @pytest.mark.gpu

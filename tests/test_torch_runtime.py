@@ -401,6 +401,18 @@ def test_launcher_refuses_what_is_not_ported(flags, err, match):
         launch.main(LAUNCH_SIZES + ["--device", "cpu"] + flags)
 
 
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "phi-3-vision-4.2b"])
+def test_launcher_task_lm_trains_the_encdec_and_vision_archs(arch, capsys):
+    """``--task lm`` on the two archs that came last: each REDUCED config
+    takes a step with its frame or patch embeddings, a finite loss."""
+    losses = launch.main(["--task", "lm", "--arch", arch, "--reduced",
+                          "--steps", "1", "--batch", "2", "--seq", "16",
+                          "--device", "cpu"])
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    assert "step    0 loss" in capsys.readouterr().out
+
+
 def test_launcher_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is it")

@@ -301,8 +301,9 @@ def test_serve_rejects_cache_layouts_it_does_not_support(cfgs):
     with pytest.raises(ValueError, match="sliding-window"):
         api.build_serve_prefill(dataclasses.replace(tcfg, attn_window=8), 1,
                                 16, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("seamless-m4t-medium")
+    with pytest.raises(ValueError, match="encdec"):
+        api.build_serve_prefill(get_config("seamless-m4t-medium",
+                                           reduced=True), 1, 16, device=CPU)
 
 
 def test_cpu_serving_never_launches_the_kernel(cfgs, v1, monkeypatch):

@@ -269,15 +269,14 @@ def test_unported_branches_raise_with_a_roadmap_pointer(f32):
     """What is not ported raises with a pointer to the roadmap: the train
     step of the moe and hybrid families (they serve, and are held against
     the reference in ``test_torch_moe.py`` and ``test_torch_hybrid.py``;
-    the dense and ssm train steps in ``test_torch_lm_train.py``), and the
-    configs of the encoder-decoder and vision archs."""
+    the dense and ssm train steps in ``test_torch_lm_train.py``, the
+    encoder-decoder and vision ones in ``test_torch_encdec.py`` and
+    ``test_torch_vlm.py``)."""
     tcfg = f32[0][1]
     glm = get_config("glm4-9b", reduced=True)
     hybrid = dataclasses.replace(tcfg, family="hybrid", attn_every=2)
     moe = dataclasses.replace(glm, family="moe", num_experts=4, top_k=2)
     for call in (
-            lambda: get_config("seamless-m4t-medium"),
-            lambda: get_config("phi3_vision_4_2b"),
             lambda: api.build(hybrid, InputShape("t", 8, B, "train"),
                               device=CPU),
             lambda: api.build(moe, InputShape("t", 8, B, "train"),
