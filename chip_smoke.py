@@ -236,6 +236,22 @@ Phases, each printing one JSON line:
    128 build) and 81 ``ssd_chunked`` launches a prefill, none in decode;
    at a 7-layer cut, kernels against the plain attention and scan in f32
    within ``LOGITS_ATOL`` and in bf16 within ``HYBRID_BF16_ATOL``.
+   ``moe_train``: 10 ``api.build(..., "train")`` steps on Moonlight's
+   2-layer cut at full width in bf16 (1.81 B parameters, batch 8 × 64, 4
+   seeded batches cycled): the loss falls, losses and gradient norms are
+   finite, no launch of flash attention or of ``gmm_ragged`` on any route
+   (the step trains through the plain attention and the looped plain
+   expert product by design); step ms, peak memory, then
+   ``torch.profiler`` over one more step (device time, top kernels) with
+   the Adam update and the step's looped expert products (forward and
+   backward, recorded from a step) replayed under it for their shares;
+   then, on the trained weights, the cut's prefill and decodes at the
+   lock-step shape, the experts through the TMA and ``wgmma`` kernel
+   against the looped plain product (near-ties replayed), within
+   ``LOGITS_ATOL``, the launches counted. ``hybrid_train``: the same on
+   Zamba2's 7-layer cut (0.98 B, batch 4 × 256), no flash or
+   ``ssd_chunked`` launch in the steps; the trained cut through both
+   kernels against the plain routes within ``HYBRID_BF16_ATOL``.
 15. The encoder-decoder and vision families. ``encdec_lockstep``: the
    whole Seamless-M4T-medium (12 + 12 layers) in bf16 in lock step
    (batch 8, 256 seeded frame embeddings, 64-token prompts, 16 greedy
@@ -266,6 +282,9 @@ Phases, each printing one JSON line:
    ``gmm_ragged_bf16``, the bf16 route on its own, its ``moe_lockstep``
    and ``moe_serve`` launches, its planned route (``kernel_route``) and
    ``mma.sync`` time beside its own, and both at its other MoE shapes.
+   The train phases' launches (0 in the steps) and those of their trained
+   cuts' comparisons stand beside each kernel's (flash attention,
+   ``gmm_ragged_bf16``, ``ssd_chunked``).
 
 Each kernel's launches are counted from 0 just before the phase that
 drives its path (``serve``, ``model_learn``, ``assigned_predict``,
@@ -275,6 +294,7 @@ drives its path (``serve``, ``model_learn``, ``assigned_predict``,
 ``threads_tcp``, ``procs_tcp_join``, ``chaos_run``,
 ``ssm_serve``, ``ssm_forward``, ``dense_lockstep``, ``lm_train``,
 ``wm_mbrl``, ``moe_lockstep``, ``moe_serve``, ``hybrid_lockstep``,
+``moe_train``, ``hybrid_train`` (and each one's trained comparison),
 ``encdec_lockstep``, ``encdec_train``, ``vlm_lockstep``) and read just
 after it (the procs phases' children count from 0 in their own
 processes and report in their heartbeats); comparison launches never
@@ -3766,35 +3786,48 @@ def moe_cut_comparisons(cfg, init_params, api, InputShape, tokens, n_new,
                                       "gmm_impl": "ref"})):
         run_cfg = dataclasses.replace(cut, dtype=dtype)
         model = init_params(run_cfg, 3)
-        with ExpertChoices(M) as choices:
-            pre, dec, _ = lockstep_vs_plain(run_cfg, model, api, InputShape,
-                                            tokens, n_new, plain=plain)
-        pairs = kernel_plain_calls(MOE_CUT_LAYERS, n_new)
-        if len(choices.idx) != 2 * len(pairs):
-            raise RuntimeError(f"moe_lockstep: {len(choices.idx)} routes, "
-                               f"not {2 * len(pairs)}")
-        moved = [int((choices.idx[k] != choices.idx[p]).any(-1).sum())
-                 for k, p in pairs]
-        out[name] = {"prefill_max_abs_err": pre, "decode_max_abs_err": dec,
-                     "prefill_tokens_rerouted": moved[:MOE_CUT_LAYERS],
-                     "decode_tokens_rerouted": sum(moved[MOE_CUT_LAYERS:]),
-                     "replayed": False}
-        if name == "bf16_experts" and any(moved):
-            replay = {p: choices.raw[k] for k, p in pairs}
-            with ExpertChoices(M, replay) as again:
-                pre_r, dec_r, _ = lockstep_vs_plain(
-                    run_cfg, model, api, InputShape, tokens, n_new,
-                    plain=plain)
-            if [again.raw[k].tolist() for k, _ in pairs] != \
-                    [choices.raw[k].tolist() for k, _ in pairs]:
-                raise RuntimeError("moe_lockstep: the kernel run routed "
-                                   "otherwise when run again")
-            out[name].update(
-                prefill_max_abs_err=pre_r, decode_max_abs_err=dec_r,
-                replayed=True, unreplayed={"prefill_max_abs_err": pre,
-                                           "decode_max_abs_err": dec})
+        out[name] = moe_cut_comparison(run_cfg, model, api, InputShape,
+                                       tokens, n_new, M, plain,
+                                       replay=name == "bf16_experts")
         del model
         _free()
+    return out
+
+
+def moe_cut_comparison(cut, model, api, InputShape, tokens, n_new, M,
+                       plain, replay: bool) -> dict:
+    """One of ``moe_cut_comparisons``' runs on ``model`` (a cut of
+    ``cut.num_layers`` layers): the kernels against the plain routes
+    ``plain`` names, the tokens rerouted at the prefill layer by layer and
+    over the decodes; with ``replay``, a rerouted run is run again with
+    the kernel run's expert choices replayed into the plain run, and that
+    error is the one returned (the first run's kept beside it)."""
+    layers = cut.num_layers
+    with ExpertChoices(M) as choices:
+        pre, dec, _ = lockstep_vs_plain(cut, model, api, InputShape, tokens,
+                                        n_new, plain=plain)
+    pairs = kernel_plain_calls(layers, n_new)
+    if len(choices.idx) != 2 * len(pairs):
+        raise RuntimeError(f"moe comparison: {len(choices.idx)} routes, "
+                           f"not {2 * len(pairs)}")
+    moved = [int((choices.idx[k] != choices.idx[p]).any(-1).sum())
+             for k, p in pairs]
+    out = {"prefill_max_abs_err": pre, "decode_max_abs_err": dec,
+           "prefill_tokens_rerouted": moved[:layers],
+           "decode_tokens_rerouted": sum(moved[layers:]),
+           "replayed": False}
+    if replay and any(moved):
+        forced = {p: choices.raw[k] for k, p in pairs}
+        with ExpertChoices(M, forced) as again:
+            pre_r, dec_r, _ = lockstep_vs_plain(cut, model, api, InputShape,
+                                                tokens, n_new, plain=plain)
+        if [again.raw[k].tolist() for k, _ in pairs] != \
+                [choices.raw[k].tolist() for k, _ in pairs]:
+            raise RuntimeError("moe comparison: the kernel run routed "
+                               "otherwise when run again")
+        out.update(prefill_max_abs_err=pre_r, decode_max_abs_err=dec_r,
+                   replayed=True, unreplayed={"prefill_max_abs_err": pre,
+                                              "decode_max_abs_err": dec})
     return out
 
 
@@ -3948,6 +3981,284 @@ def hybrid_lockstep(CONFIG, init_params, api, InputShape, fa_ops,
                                f"{dec} > {atol}")
     return {**readings, "shared_invocations": n_inv, "head_dim": cfg.hd,
             f"l{HYBRID_CUT_LAYERS}_kernel_vs_plain": errs}
+
+
+# the moe and hybrid train steps: Moonlight's 2-layer cut at the lock-step
+# batch, Zamba2's 7-layer cut at the hybrid's; 10 steps on 4 seeded
+# batches, cycled (the loss must fall), then the trained cut's prefill and
+# decodes through the kernels against the plain routes
+MOE_TRAIN = dict(batch=8, seq=64, steps=10, batches=4)
+HYBRID_TRAIN = dict(batch=4, seq=256, steps=10, batches=4)
+
+
+class LoopedProducts:
+    """Records each call of ``ref.grouped_matmul_looped`` made inside the
+    ``with`` block (a measurement hook; the products are unchanged): its
+    operands, detached, and its group sizes. ``replay()`` runs every
+    recorded product again with its backward (``dx`` and ``dW``, as the
+    train step asks for both), the slice writes' autograd included."""
+
+    def __init__(self, gmm_ref):
+        self.ref, self.looped, self.calls = gmm_ref, \
+            gmm_ref.grouped_matmul_looped, []
+
+    def __enter__(self):
+        def looped(lhs, rhs, group_sizes):
+            self.calls.append((lhs.detach(), rhs.detach(),
+                               group_sizes.clone()))
+            return self.looped(lhs, rhs, group_sizes)
+        self.ref.grouped_matmul_looped = looped
+        return self
+
+    def __exit__(self, *exc):
+        self.ref.grouped_matmul_looped = self.looped
+
+    def replay(self):
+        for lhs, rhs, sizes in self.calls:
+            a = lhs.requires_grad_(True)
+            w = rhs.requires_grad_(True)
+            out = self.looped(a, w, sizes)
+            torch.autograd.grad(out, (a, w), torch.ones_like(out))
+            a.requires_grad_(False)
+            w.requires_grad_(False)
+
+
+def _device_ms(kernels) -> float:
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
+def _top_kernels(kernels, n: int = 8) -> list:
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return [[name[:80], ms] for name, ms in top]
+
+
+def train_cut(cfg, api, InputShape, LM, adam, init_params, spec, counters,
+              seed: int) -> tuple:
+    """``api.build(cfg, InputShape(..., "train"))`` at full width on
+    ``spec``'s batch: ``spec["steps"]`` steps over ``spec["batches"]``
+    seeded batches (labels equal to tokens), cycled, the counts in
+    ``counters`` at 0 just before and read just after. Returns the bundle,
+    the model, its optimizer state, the batches and the readings."""
+    B, S, steps = (spec[k] for k in ("batch", "seq", "steps"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = []
+    for _ in range(spec["batches"]):
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        batches.append({"tokens": tokens, "labels": tokens})
+    bundle = api.build(cfg, InputShape("t", S, B, "train"))
+    model = init_params(cfg, 0)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt_state = adam(cfg.lr).init(LM.trainable(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    losses, gnorms, step_ms = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        model, opt_state, m = bundle.fn(model, opt_state,
+                                        batches[i % len(batches)])
+        losses.append(float(m["loss"]))
+        step_ms.append(_ms_since(t0))
+        gnorms.append(float(m["gnorm"]))
+    launches = _counts(counters)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    warm = sorted(step_ms[1:])
+    readings = {
+        "config": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+        "params_b": n_params / 1e9, "batch": B, "seq": S, "steps": steps,
+        "lr": cfg.lr, "microbatches": bundle.num_microbatches,
+        "batches_cycled": spec["batches"], "losses": losses,
+        "gnorms": gnorms, "step_ms_first": step_ms[0],
+        "step_ms_p50": warm[len(warm) // 2],
+        "tokens_per_s": B * S / (warm[len(warm) // 2] / 1e3),
+        "peak_mem_gb": peak, "launches": launches}
+    return bundle, model, opt_state, batches, readings
+
+
+def train_checks(name, readings, shape_count: int):
+    """The train phases' shared checks: the loss falls, losses and
+    gradient norms are finite, no kernel launched in the steps (the plain
+    routes by design), one input shape."""
+    losses, launches = readings["losses"], readings["launches"]
+    checks = {
+        "loss fell": losses[-1] < losses[0],
+        "finite": bool(np.isfinite(losses + readings["gnorms"]).all()),
+        "no kernel launch in the steps (plain routes by design)":
+            not any(launches.values()),
+        "one train input shape": shape_count == 1,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{name} failed: {failed}; losses {losses}, "
+                           f"launches {launches}")
+
+
+def profile_train_step(bundle, model, opt_state, batch, LM, adam,
+                       parts=None) -> tuple:
+    """Where one more train step's time goes: ``torch.profiler`` over it
+    (device time, busy share, the top kernels by name; a profile that
+    comes back empty steps again); then the
+    optimizer's part, the Adam update and the add replayed on the step's
+    leaves with f32 gradients (the state is not advanced, the leaves not
+    written), and each of ``parts``' (name -> a replay) under the profiler
+    too. Shares are of the step's device time and of its wall time.
+    Returns the model, its state and the readings."""
+    state = {"model": model, "opt": opt_state}
+
+    def step():
+        state["model"], state["opt"], _ = bundle.fn(state["model"],
+                                                     state["opt"], batch)
+    kernels, wall_ms = profiled(step)
+    device = _device_ms(kernels)
+    leaves = LM.trainable(state["model"])
+    grads = {n: torch.full_like(t, 1e-3, dtype=torch.float32)
+             for n, t in leaves.items()}
+    opt = adam(bundle.cfg.lr)
+
+    def optimizer():
+        with torch.no_grad():
+            updates, _ = opt.update(grads, state["opt"], leaves)
+            for n, t in leaves.items():
+                (t + updates[n]).to(t.dtype)
+    out = {"step_wall_ms": wall_ms, "step_device_ms": device,
+           "device_busy_share": device / wall_ms,
+           "kernels_per_step": len(kernels),
+           "top_kernels_ms": _top_kernels(kernels)}
+    for name, run in [("optimizer", optimizer)] + list((parts or {}).items()):
+        k, w = profiled(run)
+        out[name] = {"device_ms": _device_ms(k), "wall_ms": w,
+                     "kernels": len(k),
+                     "share_of_step_device": _device_ms(k) / device,
+                     "share_of_step_wall": w / wall_ms}
+    del grads
+    return state["model"], state["opt"], out
+
+
+def moe_train(CONFIG, init_params, api, InputShape, LM, adam, fa_ops,
+              gmm_ops, gmm_ref, M) -> dict:
+    """``api.build(..., "train")`` on Moonlight-16B-A3B's
+    ``MOE_CUT_LAYERS``-layer cut at full width in bf16: ``MOE_TRAIN``'s 10
+    steps over 4 seeded batches, cycled. The step trains through the plain
+    attention and the experts' looped plain product by design (the
+    kernels are forward-only, as the reference's have no backward): the
+    loss falls, nothing is launched of flash attention or of the ragged
+    product's kernels (f32, and bf16 on either route). Then
+    ``profile_train_step`` over one more step, with the looped expert
+    products of one recorded step (forward and backward) replayed as a
+    part. Then, on the weights so trained (12 steps or more), the cut's
+    prefill and decodes at ``MOE_LOCKSTEP``, the experts through the TMA
+    and ``wgmma`` kernel against the looped plain product and the
+    attention through the kernel in both (``moe_cut_comparison``'s run
+    (1), near-ties replayed), within ``LOGITS_ATOL``, with the kernels'
+    launches counted."""
+    from repro_torch.kernels.gmm import cuda as gmm_cuda
+    cfg = dataclasses.replace(CONFIG, num_layers=MOE_CUT_LAYERS,
+                              name=f"{CONFIG.name}-l{MOE_CUT_LAYERS}")
+    counters = {"flash": (fa_ops, "launches"),
+                "gmm_ragged": (gmm_ops, "ragged_launches"),
+                "gmm_ragged_bf16": (gmm_ops, "ragged_bf16_launches"),
+                "gmm_ragged_bf16_wgmma": (gmm_cuda, "bf16_wgmma_launches"),
+                "gmm_ragged_bf16_mma_sync": (gmm_cuda,
+                                             "bf16_mma_sync_launches")}
+    bundle, model, opt_state, batches, readings = train_cut(
+        cfg, api, InputShape, LM, adam, init_params, MOE_TRAIN, counters, 5)
+    train_checks("moe_train", readings, bundle.fn.shape_count)
+    with LoopedProducts(gmm_ref) as products:   # one more step, recorded
+        model, opt_state, _ = bundle.fn(model, opt_state, batches[0])
+    if len(products.calls) != 3 * cfg.num_layers:
+        raise RuntimeError(f"moe_train: {len(products.calls)} looped "
+                           f"products a step, not {3 * cfg.num_layers}")
+    model, opt_state, profile = profile_train_step(
+        bundle, model, opt_state, batches[1], LM, adam,
+        {"expert_products": products.replay})
+    del opt_state, bundle, products
+    _free()
+    B, S, n_new = (MOE_LOCKSTEP[k] for k in ("batch", "prompt", "new"))
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    counts = {k: v for k, v in counters.items() if k != "gmm_ragged"}
+    for mod, attr in counts.values():
+        setattr(mod, attr, 0)
+    err = moe_cut_comparison(cfg, model, api, InputShape, tokens, n_new, M,
+                             {"gmm_impl": "ref"}, replay=True)
+    launches = _counts(counts)
+    del model
+    _free()
+    runs = 2 if err["replayed"] else 1
+    gmm = runs * 3 * cfg.num_layers * (1 + n_new)
+    want = {"flash": runs * 2 * cfg.num_layers, "gmm_ragged_bf16": gmm,
+            "gmm_ragged_bf16_wgmma": gmm, "gmm_ragged_bf16_mma_sync": 0}
+    if launches != want:
+        raise RuntimeError(f"moe_train: trained cut's comparison launched "
+                           f"{launches}, not {want}")
+    held = max(err["prefill_max_abs_err"], err["decode_max_abs_err"])
+    if not held <= LOGITS_ATOL:
+        raise RuntimeError(f"moe_train: trained {MOE_CUT_LAYERS} layers, "
+                           f"logits kernel vs plain {err} > {LOGITS_ATOL}")
+    return {**readings, "looped_products_per_step": 3 * cfg.num_layers,
+            "profile": profile,
+            "trained_kernel_vs_plain": {**err, "atol": LOGITS_ATOL,
+                                        "batch": B, "prompt": S,
+                                        "new_tokens": n_new},
+            "trained_comparison_launches": launches}
+
+
+def hybrid_train(CONFIG, init_params, api, InputShape, LM, adam, fa_ops,
+                 ssd_ops) -> dict:
+    """``api.build(..., "train")`` on Zamba2-7B's ``HYBRID_CUT_LAYERS``-layer
+    cut at full width in bf16: ``HYBRID_TRAIN``'s 10 steps over 4 seeded
+    batches, cycled, through the plain attention and scan by design: the
+    loss falls, neither flash attention nor ``ssd_chunked`` is launched.
+    Then ``profile_train_step`` over one more step. Then, on the trained
+    weights, the cut's prefill and decodes at ``HYBRID_LOCKSTEP`` through
+    both kernels against the plain attention and scan
+    (``lockstep_vs_plain``) within ``HYBRID_BF16_ATOL``, the kernels'
+    launches counted."""
+    cfg = dataclasses.replace(CONFIG, num_layers=HYBRID_CUT_LAYERS,
+                              name=f"{CONFIG.name}-l{HYBRID_CUT_LAYERS}")
+    counters = {"flash": (fa_ops, "launches"),
+                "ssd_chunked": (ssd_ops, "launches")}
+    bundle, model, opt_state, batches, readings = train_cut(
+        cfg, api, InputShape, LM, adam, init_params, HYBRID_TRAIN, counters,
+        6)
+    train_checks("hybrid_train", readings, bundle.fn.shape_count)
+    model, opt_state, profile = profile_train_step(
+        bundle, model, opt_state, batches[1], LM, adam)
+    del opt_state, bundle
+    _free()
+    B, S, n_new = (HYBRID_LOCKSTEP[k] for k in ("batch", "prompt", "new"))
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    pre, dec, lg_ref = lockstep_vs_plain(
+        cfg, model, api, InputShape, tokens, n_new,
+        plain={"attn_impl": "ref", "ssd_impl": "ref"})
+    launches = _counts(counters)
+    del model
+    _free()
+    want = {"flash": LM.n_shared_invocations(cfg),
+            "ssd_chunked": cfg.num_layers}
+    if launches != want:
+        raise RuntimeError(f"hybrid_train: trained cut's comparison "
+                           f"launched {launches}, not {want}")
+    if not max(pre, dec) <= HYBRID_BF16_ATOL:
+        raise RuntimeError(f"hybrid_train: trained {HYBRID_CUT_LAYERS} "
+                           f"layers, logits kernel vs plain {pre} {dec} > "
+                           f"{HYBRID_BF16_ATOL}")
+    return {**readings, "shared_invocations": LM.n_shared_invocations(cfg),
+            "profile": profile,
+            "trained_kernel_vs_plain": {
+                "prefill_max_abs_err": pre, "decode_max_abs_err": dec,
+                "atol": HYBRID_BF16_ATOL, "logits_std": lg_ref.std().item(),
+                "batch": B, "prompt": S, "new_tokens": n_new},
+            "trained_comparison_launches": launches}
 
 
 # ---------------------------------------------------------------- phase 15
@@ -4316,6 +4627,12 @@ def main() -> int:
     hybrid = hybrid_lockstep(ZAMBA2, init_params, api, InputShape, fa_ops,
                              ssd_ops, LM)
     emit({"phase": "hybrid_lockstep", **hybrid})
+    moe_trained = moe_train(MOONLIGHT, init_params, api, InputShape, LM, adam,
+                            fa_ops, gmm_ops, gmm_ref, MOE)
+    emit({"phase": "moe_train", **moe_trained})
+    hybrid_trained = hybrid_train(ZAMBA2, init_params, api, InputShape, LM,
+                                  adam, fa_ops, ssd_ops)
+    emit({"phase": "hybrid_train", **hybrid_trained})
     encdec = encdec_lockstep(SEAMLESS, api, InputShape, fa_ops, E)
     emit({"phase": "encdec_lockstep", **encdec})
     encdec_trained = encdec_train(SEAMLESS, api, InputShape, LM, E, adam,
@@ -4342,6 +4659,12 @@ def main() -> int:
         "launches_moe_lockstep": moe["launches"]["flash"],
         "launches_moe_serve": moe_served["attention_launches"],
         "launches_hybrid_lockstep": hybrid["launches"]["flash"],
+        "launches_moe_train": moe_trained["launches"]["flash"],
+        "launches_moe_train_trained_comparison":
+            moe_trained["trained_comparison_launches"]["flash"],
+        "launches_hybrid_train": hybrid_trained["launches"]["flash"],
+        "launches_hybrid_train_trained_comparison":
+            hybrid_trained["trained_comparison_launches"]["flash"],
         "launches_encdec_lockstep": encdec["launches"]["flash"],
         "launches_encdec_train": encdec_trained["attention_launches"],
         "launches_vlm_lockstep": vlm["launches"]["flash"],
@@ -4405,6 +4728,9 @@ def main() -> int:
         "launches": moe["launches"]["gmm_ragged_bf16"],
         "launches_tma_wgmma": moe["launches"]["gmm_ragged_bf16_wgmma"],
         "launches_moe_serve": moe_served["gmm_ragged_bf16_launches"],
+        "launches_moe_train": moe_trained["launches"]["gmm_ragged_bf16"],
+        "launches_moe_train_trained_comparison":
+            moe_trained["trained_comparison_launches"]["gmm_ragged_bf16"],
         "max_abs_err": max(r["max_abs_err"] for r in moe_rows.values()),
         "ms": mg["ms"], "plain_ms": mg["plain_ms"],
         "bound_ms": mg["bound_ms"], "bound_by": mg["bound_by"],
@@ -4437,6 +4763,9 @@ def main() -> int:
         "launches_serve": ssm_served["ssd_launches"],
         "launches_forward": ssm_fwd["ssd_launches"],
         "launches_hybrid_lockstep": hybrid["launches"]["ssd_chunked"],
+        "launches_hybrid_train": hybrid_trained["launches"]["ssd_chunked"],
+        "launches_hybrid_train_trained_comparison":
+            hybrid_trained["trained_comparison_launches"]["ssd_chunked"],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows.values()),
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],

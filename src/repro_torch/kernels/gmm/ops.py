@@ -34,9 +34,10 @@ Offsets stay on the device and no size is read on the host.
 
 bf16. The ragged kernel's bf16 route (the dropless MoE's products) is
 forward-only: ``RaggedGroupedMatmulBf16`` raises if asked for a gradient,
-as flash attention and the SSD scan do, until a bf16 backward kernel comes
-with MoE training (ROADMAP.md). The plain route keeps its autograd in
-bf16 too.
+as flash attention and the SSD scan do. The reference has no backward
+kernel for it either: the MoE trains through the plain route, whose
+autograd works in bf16 too, and bf16 backward kernels are performance
+work (ROADMAP.md §2).
 
 The counters count kernel launches made here, so a run can show that its
 path went through them: the equal kernel's forward and backward products
@@ -220,9 +221,10 @@ class RaggedGroupedMatmulBf16(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         raise NotImplementedError(
-            "the bf16 gmm_ragged kernel is forward-only: its backward "
-            "kernels come with MoE training (ROADMAP.md, open items); "
-            "differentiate the plain product with impl='ref' meanwhile")
+            "the bf16 gmm_ragged kernel is forward-only, as the reference's "
+            "is (bf16 backward kernels are performance work, ROADMAP.md "
+            "§2); differentiate the plain product with impl='ref', as the "
+            "MoE train step does")
 
 
 def _use_kernel(t: torch.Tensor, impl) -> bool:

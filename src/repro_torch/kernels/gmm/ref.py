@@ -88,18 +88,30 @@ def grouped_matmul_looped(lhs, rhs, group_sizes):
     ``[off_g, off_g + size_g)`` times ``rhs[g]``, f32 sums rounded once to
     ``lhs.dtype``; rows beyond ``sum(group_sizes)`` are multiplied by the
     last group, as there. ``group_sizes`` is read on the host (a tensor),
-    or given there (a sequence, so a CUDA graph can capture the loop)."""
+    or given there (a sequence, so a CUDA graph can capture the loop).
+
+    The rows are split and the weights unbound once, and the products
+    joined by one ``cat``, so that autograd's backward writes each
+    operand's gradient once (one ``cat`` of the row blocks' gradients, one
+    ``stack`` of the groups' weight gradients, an unused group's zero).
+    Indexing ``rhs[g]`` and writing slices of the output in place would
+    give the same values, but a backward that builds a full-size gradient
+    of each operand for every group, which at Moonlight's 64 experts took
+    most of a train step's device time (``chip_smoke.py``'s
+    ``moe_train``)."""
     sizes = (group_sizes.tolist() if torch.is_tensor(group_sizes)
              else list(group_sizes))
     M = lhs.shape[0]
-    out = lhs.new_empty((M, rhs.shape[2]))
-    start = 0
+    rows, start = [], 0
     for g, size in enumerate(sizes):
-        end = M if g == len(sizes) - 1 else min(start + int(size), M)
-        if end > start:
-            out[start:end] = _mm_f32(lhs[start:end], rhs[g]).to(lhs.dtype)
+        end = M if g == len(sizes) - 1 else min(start + max(int(size), 0), M)
+        rows.append(end - start)
         start = end
-    return out
+    weights = rhs.unbind(0)
+    out = [_mm_f32(block, weights[g]).to(lhs.dtype) if rows[g]
+           else lhs.new_empty((0, rhs.shape[2]))
+           for g, block in enumerate(lhs.split(rows))]
+    return torch.cat(out) if out else lhs.new_empty((M, rhs.shape[2]))
 
 
 def ragged_transposed_matmul(a, b, group_sizes):

@@ -9,10 +9,11 @@ or one of the synchronous engines::
         --algo me-trpo --engine async --trajs 60
 
 ``--task lm``: the LM trainer, ``api.build(..., "train")`` on random
-tokens for ``--steps`` steps, for the dense, vlm, ssm and encdec families
-(the encdec's batch adds random frame embeddings, a vision model's random
-patch embeddings over the first ``--seq // 8`` positions, as in the
-reference; the moe and hybrid families serve but do not train yet)::
+tokens for ``--steps`` steps, for every family (the encdec's batch adds
+random frame embeddings, a vision model's random patch embeddings over the
+first ``--seq // 8`` positions, as in the reference; the moe experts and
+the hybrid's scan train through their plain routes, as the dense
+attention does)::
 
     python -m repro_torch.launch.train --task lm --arch glm4-9b --reduced \\
         --steps 10
@@ -30,9 +31,7 @@ collectors::
         --transport tcp --bind 0.0.0.0:7447 --trajs 60
     python -m repro_torch.launch.train --connect trainer-host:7447
 
-What is not ported exits with a message that names ROADMAP.md: ``--mesh``
-and ``--task lm`` on the moe and hybrid archs (whose train step is
-refused).
+What is not ported exits with a message that names ROADMAP.md: ``--mesh``.
 """
 from __future__ import annotations
 
@@ -167,11 +166,8 @@ def run_lm(args):
 
     dev = resolve_device(args.device)
     shape = InputShape("cli", args.seq, args.batch, "train")
-    try:
-        cfg = get_config(args.arch, reduced=args.reduced)
-        bundle = api.build(cfg, shape, device=dev)
-    except NotImplementedError as err:
-        raise SystemExit(f"--task lm --arch {args.arch}: {err}") from None
+    cfg = get_config(args.arch, reduced=args.reduced)
+    bundle = api.build(cfg, shape, device=dev)
     params = api._mod(cfg).init_params(cfg, args.seed, device=dev)
     opt_state = adam(cfg.lr).init(LM.trainable(params))
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -8,7 +8,7 @@ most one prefill shape per prompt bucket.
 
 ``build`` makes the lock-step prefill and decode steps (the dense, vlm,
 ssm, moe, hybrid and encdec families; fp or int8 KV caches on dense, vlm
-and moe) and the microbatched train step (dense, vlm, ssm and encdec);
+and moe) and the microbatched train step (every family);
 ``build_serve_prefill`` / ``build_serve_decode`` make the slot-pool steps
 of the continuous-batching serve tier (the dense, vlm and moe families;
 the others raise ValueError, as in the reference);
@@ -108,10 +108,10 @@ def build(cfg: ModelConfig, shape: InputShape, *, device=None,
     * ``"train"``: ``bundle.fn(params, opt_state, batch) -> (params,
       opt_state, {"loss", "gnorm"})`` with Adam at ``cfg.lr`` (``opt_state
       = adam(cfg.lr).init(LM.trainable(params))``) over
-      ``pick_microbatches`` microbatches, through the plain attention and
-      scan (``LM.make_train_step``; the encdec family's loss is
-      ``encdec.loss_forward``); the moe and hybrid families raise
-      (ROADMAP.md).
+      ``pick_microbatches`` microbatches, through the plain attention,
+      scan and moe expert products (``LM.make_train_step``; the encdec
+      family's loss is ``encdec.loss_forward``). The ``*_impl`` arguments
+      do not apply: the kernel routes are forward-only.
 
     The encdec family's params come from ``encdec.init_params`` (any
     family's: ``_mod(cfg).init_params``); it takes ``attn_impl`` only."""

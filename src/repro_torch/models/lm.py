@@ -38,11 +38,13 @@ The vlm family is the dense one with the vision frontend's stub in
 ``embed_inputs`` (``patch_embeds`` take the first positions). Decode
 writes into a cache in place, where the reference donates it to a jit.
 ``make_train_step`` is the reference's microbatched step on one card,
-for the dense, vlm and ssm families (and the encdec's, given its
-``loss_fwd``); it trains by autograd of the plain
-attention and scan, the reference's own gradient route (its Pallas kernels
-have no ``custom_vjp``). The moe and hybrid families serve and do not
-train yet (ROADMAP.md).
+for every decoder family (and the encdec's, given its ``loss_fwd``); it
+trains by autograd of the plain routes, the reference's own gradient route
+(its attention, scan and ragged-product Pallas kernels have no
+``custom_vjp``): the plain attention (dense, vlm, moe, and the hybrid's
+shared block), the plain scan (ssm, hybrid) and, for the moe experts, the
+plain ragged product (``moe.py`` says which dispatch runs where). The
+kernel routes stay forward-only and raise if asked for a gradient.
 """
 from __future__ import annotations
 
@@ -266,7 +268,8 @@ def embed_inputs(cfg: ModelConfig, params: LM, batch):
 
 
 def loss_forward(cfg: ModelConfig, params: LM, batch, *,
-                 attn_impl: str | None = None, ssd_impl: str | None = None):
+                 attn_impl: str | None = None, ssd_impl: str | None = None,
+                 gmm_impl: str | None = None):
     """The stateless forward and its loss: ``(sum_loss, count, aux)`` as the
     reference returns them (``aux`` is the moe load-balance loss, 0 for the
     other families). The ``*_impl`` pick the routes as in
@@ -275,7 +278,7 @@ def loss_forward(cfg: ModelConfig, params: LM, batch, *,
     ``make_train_step`` uses it."""
     x, positions = embed_inputs(cfg, params, batch)
     h, aux, _ = stack_forward(cfg, params, x, positions, attn_impl=attn_impl,
-                              ssd_impl=ssd_impl)
+                              ssd_impl=ssd_impl, gmm_impl=gmm_impl)
     s, c = L.lm_loss(cfg, params["embed"], h, batch["labels"])
     return s, c, aux
 
@@ -328,10 +331,16 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     {"loss", "gnorm"})``.
 
     ``loss_fwd(params, batch) -> (sum_loss, count, aux)`` defaults to the
-    decoder-LM loss through the PLAIN attention and scan
-    (``attn_impl="ref"``, ``ssd_impl="ref"``): the reference's Pallas
-    kernels have no ``custom_vjp``, so its gradient is autodiff of its plain
-    versions, and the port's kernel routes are forward-only. The batch is
+    decoder-LM loss through the PLAIN routes of every family: the
+    attention, the scan and the moe experts' ragged product
+    (``attn_impl="ref"``, ``ssd_impl="ref"``, ``gmm_impl="ref"``). The
+    reference's Pallas kernels have no ``custom_vjp``, so its gradient is
+    autodiff of its plain versions, and the port's kernel routes are
+    forward-only. On the card the experts' plain product is the loop over
+    the groups (``gmm/ref.grouped_matmul_looped``), whose autograd needs no
+    per-row weight gather; on the CPU the capacity buffers' einsums, as the
+    reference trains off-TPU. The hybrid's shared block is one set of
+    leaves, so its gradient is the sum over its invocations. The batch is
     split into ``num_microbatches`` row blocks whose gradients accumulate in
     f32; the global norm is clipped at ``cfg.max_grad_norm``. The LM's
     leaves are frozen; the step marks them for the gradient itself and
@@ -339,14 +348,9 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     arrays), so ``params`` comes back as the same module. ``opt_state`` is
     ``opt.init(trainable(params))``."""
     if loss_fwd is None:
-        if _block_kind(cfg) in ("moe", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: training the {cfg.family} family is not "
-                "ported to repro_torch yet (its bf16 backward kernels come "
-                "with it); see ROADMAP.md, open items")
-
         def loss_fwd(p, b):
-            return loss_forward(cfg, p, b, attn_impl="ref", ssd_impl="ref")
+            return loss_forward(cfg, p, b, attn_impl="ref", ssd_impl="ref",
+                                gmm_impl="ref")
 
     def train_step(params: LM, opt_state, batch):
         nm = num_microbatches

@@ -13,10 +13,20 @@ Two dispatches, as the reference picks them on one device
   the plain gather, which materialises per-row expert weights.
 
 The two agree whenever nothing overflows a buffer, as at the REDUCED
-configs' ``capacity_factor=8.0``. In bf16 they round differently: the
-dropless path rounds each expert's output to bf16 before the combine, the
-capacity path keeps it in f32. Neither gives way to the other: a CUDA
-tensor the kernel refuses raises.
+configs' ``capacity_factor=8.0``, and so do their gradients (the router's
+and the load-balance loss's too: the routed counts carry none). In bf16
+they round differently: the dropless path rounds each expert's output to
+bf16 before the combine, the capacity path keeps it in f32. Neither gives
+way to the other: a CUDA tensor the kernel refuses raises.
+
+Training keeps the same split. The train step names ``gmm_impl="ref"``: on
+the card the dropless dispatch then runs its products through
+``gmm/ref.grouped_matmul_looped``, a loop over the experts whose autograd
+writes each operand's gradient once (the gather of ``ref.grouped_matmul``
+would hold (rows, d, f) weights: 17.7 GB at Moonlight's prefill); on the
+CPU the capacity buffers' batched products, as the reference trains
+off-TPU. The bf16 kernel route has no backward, as the reference's has
+none.
 
 Not ported (mesh code, ROADMAP.md §1 item 9): ``moe_forward_ws``, the
 ``tp`` strategy, ``_fsdp_gather`` and ``spec_moe``.

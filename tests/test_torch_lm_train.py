@@ -5,14 +5,22 @@
   InputShape(..., "train"))``, both f32 from one set of parameters, two
   microbatches, three steps on the same batches: ``loss``, ``gnorm`` and
   every parameter after each step at ``TOL`` (atol/rtol 1e-4). On
-  ``glm4-9b`` REDUCED (the dense family, the plain attention by autograd)
-  and ``mamba2-2.7b`` REDUCED (the ssm family, the plain scan), both at
-  d = 32 (see ``test_gnorm_is_the_global_norm_of_the_gradient`` for why).
+  ``glm4-9b`` REDUCED (the dense family, the plain attention by autograd),
+  ``mamba2-2.7b`` REDUCED (the ssm family, the plain scan), the three moe
+  archs REDUCED (4 experts, top 2, capacity factor 8: nothing overflows,
+  so the reference's and the port's CPU capacity buffers hold every
+  token) and ``zamba2-7b`` REDUCED (3 layers at ``attn_every`` 2: two
+  invocations of the shared block, whose one set of leaves takes the sum
+  of their gradients), all at d = 32 (see
+  ``test_gnorm_is_the_global_norm_of_the_gradient`` for why).
 * The optimizer additions: ``adamw`` exactly, ``cosine_schedule`` and
   ``warmup_cosine`` to an ulp of ``cos``.
 * ``pick_microbatches`` as the reference's at dp=1.
 * ``data.synthetic``: ``DynamicsTokenStream`` with JAX's draws injected and
   ``trajectory_tokens``, tokens equal.
+* The moe train route of the card against the CPU's: the dropless
+  dispatch with its products through ``ref.grouped_matmul_looped`` and the
+  capacity buffers, output, aux loss and every gradient.
 * The launcher's ``--task lm`` on the CPU.
 """
 import dataclasses
@@ -34,9 +42,14 @@ from repro.optim import optimizers as jopt
 from repro_torch.configs import get_config
 from repro_torch.data import synthetic as syn
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.gmm import cuda as gmm_cuda
+from repro_torch.kernels.gmm import ops as gmm_ops
+from repro_torch.kernels.gmm import ref as gmm_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.launch import train as launch
 from repro_torch.models import api
 from repro_torch.models import lm as LM
+from repro_torch.models import moe as M
 from repro_torch.models.config import InputShape
 from repro_torch.optim import optimizers as opt
 from repro_torch.testing.parity import state_from_jax
@@ -58,18 +71,43 @@ def _cfgs(arch, **kw):
                  for get in (jax_get_config, get_config))
 
 
+_MOE = dict(d_model=32, num_heads=4, num_kv_heads=2, head_dim=8, d_ff=32,
+            vocab_size=128)
 SMALL = {
     "dense": ("glm4-9b", dict(d_model=32, num_heads=4, num_kv_heads=2,
                               d_ff=64, vocab_size=128)),
     "ssm": ("mamba2-2.7b", dict(d_model=32, ssm_head_dim=16, ssm_chunk=8,
                                 vocab_size=128)),
+    "moe_moonshot": ("moonshot-v1-16b-a3b", _MOE),
+    "moe_mixtral": ("mixtral-8x7b", _MOE),
+    "moe_qwen3_qk_norm": ("qwen3-moe-235b-a22b", _MOE),
+    "hybrid_zamba2": ("zamba2-7b", dict(d_model=32, num_heads=4,
+                                        num_kv_heads=4, d_ff=64,
+                                        ssm_head_dim=16, ssm_chunk=8,
+                                        vocab_size=128)),
 }
 
 
-@pytest.mark.parametrize("family", ["dense", "ssm"])
+def _kernel_launches():
+    return (fa_ops.launches, ssd_ops.launches, gmm_ops.ragged_bf16_launches,
+            gmm_ops.ragged_launches)
+
+
+def _no_overflow(cfg, tokens: int) -> bool:
+    """Each token picks ``top_k`` distinct experts, so an expert receives at
+    most one row a token: a capacity of ``tokens`` slots holds them all."""
+    return M.capacity(cfg, tokens) >= tokens
+
+
+@pytest.mark.parametrize("family", list(SMALL))
 def test_train_step_matches_jax(family):
     arch, kw = SMALL[family]
     jcfg, tcfg = _cfgs(arch, **kw)
+    if tcfg.family == "moe":
+        assert (tcfg.num_experts, tcfg.top_k) == (4, 2)
+        assert _no_overflow(tcfg, B // 2 * SEQ)      # a microbatch's tokens
+    if tcfg.family == "hybrid":
+        assert LM.n_shared_invocations(tcfg) == 2
     shape = (SEQ, B, "train")
     jb = japi.build(jcfg, make_smoke_mesh(),
                     JInputShape("t", *shape, microbatch=2))
@@ -87,11 +125,11 @@ def test_train_step_matches_jax(family):
         labels[0, :3] = -1
         jp, jstate, jm = jb.fn(jp, jstate, {"tokens": jnp.asarray(tokens),
                                             "labels": jnp.asarray(labels)})
-        before = fa_ops.launches
+        before = _kernel_launches()
         model, tstate, tm = tb.fn(model, tstate, {
             "tokens": torch.from_numpy(tokens),
             "labels": torch.from_numpy(labels)})
-        assert fa_ops.launches == before
+        assert _kernel_launches() == before
         for key in ("loss", "gnorm"):
             np.testing.assert_allclose(float(tm[key]), float(jm[key]), **TOL,
                                        err_msg=f"step {step}: {key}")
@@ -148,13 +186,42 @@ def test_train_step_clips_at_max_grad_norm():
     np.testing.assert_allclose(float(moved), 1e-3, rtol=1e-3)
 
 
-def test_kernel_loss_route_refuses_a_gradient_on_the_train_step():
+def test_kernel_loss_route_refuses_a_gradient_on_the_train_step(
+        monkeypatch):
     """The train step names the plain routes itself; a loss through the
-    kernel routes is forward-only (on the CPU both are the plain version,
-    so the named routes are what is checked here)."""
+    kernel routes is forward-only. On the CPU the attention and scan
+    kernels' routes are the plain version, so their named routes are what
+    is checked. The moe experts' bf16 kernel route is wired as on the card
+    (the dropless dispatch, the kernel's product stood in by the plain one
+    under ``no_grad``, as a launch returns a tensor without a graph): with
+    ``gmm_impl=None`` a gradient raises naming the roadmap; with the train
+    step's ``gmm_impl="ref"`` it flows, and no kernel is launched."""
     import inspect
     src = inspect.getsource(LM.make_train_step)
-    assert 'attn_impl="ref"' in src and 'ssd_impl="ref"' in src
+    assert ('attn_impl="ref"' in src and 'ssd_impl="ref"' in src
+            and 'gmm_impl="ref"' in src)
+
+    def stand_in(a, b, offsets):
+        with torch.no_grad():
+            return gmm_ref.grouped_matmul(a, b, offsets[1:] - offsets[:-1])
+    monkeypatch.setattr(gmm_ops, "_use_kernel", lambda t, impl: impl != "ref")
+    monkeypatch.setattr(gmm_cuda, "gmm_ragged", stand_in)
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b", reduced=True),
+                              **_MOE)
+    assert cfg.dtype == "bfloat16"
+    p = LM.init_params(cfg, 0, device=CPU)["layers"][0]["moe"]
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 8, cfg.d_model), generator=gen).bfloat16()
+    x.requires_grad_(True)
+    before = gmm_ops.ragged_bf16_launches
+    y, _ = M.moe_forward_dropless(cfg, p, x)
+    assert gmm_ops.ragged_bf16_launches == before + 3
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        y.float().sum().backward()
+    y, _ = M.moe_forward_dropless(cfg, p, x, gmm_impl="ref")
+    y.float().sum().backward()
+    assert gmm_ops.ragged_bf16_launches == before + 3
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
 
 
 @pytest.mark.parametrize("shape", [(8, 64, 0), (8, 2048, 0), (16, 4096, 0),
@@ -259,3 +326,15 @@ def test_launcher_task_lm_trains_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "step    0 loss" in out and "step    2 loss" in out
     assert "gnorm" in out
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "zamba2-7b"])
+def test_launcher_task_lm_trains_the_moe_and_hybrid_archs(arch, capsys):
+    """``--task lm`` on a moe and the hybrid arch, REDUCED (bf16): two
+    steps, each printing a finite loss."""
+    losses = launch.main(["--task", "lm", "--arch", arch, "--reduced",
+                          "--device", "cpu", "--steps", "2", "--seq", "16",
+                          "--batch", "2"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    out = capsys.readouterr().out
+    assert "step    0 loss" in out and "step    1 loss" in out

@@ -384,17 +384,20 @@ def test_launcher_runs_each_engine_on_the_cpu(engine, tmp_path):
 
 
 @pytest.mark.parametrize("flags,err,match", [
-    # the threads and procs engines, the tcp transport and --connect are
-    # ported; a role mesh under any mode and --task lm are not
+    # the threads and procs engines, the tcp transport, --connect and
+    # --task lm on every arch are ported; a role mesh under any mode and
+    # engine is not (the ids "connect" and "lm" hold it under the tcp
+    # control plane and under an explicit --task mbrl)
     (["--mode", "threads", "--mesh", "auto"], SystemExit, "ROADMAP.md"),
     (["--mode", "procs", "--mesh", "auto"], SystemExit, "ROADMAP.md"),
     # the event mode over tcp meets the reference's error
     (["--transport", "tcp"], ValueError,
      'transport="tcp" needs a real engine'),
     (["--mesh", "auto"], SystemExit, "ROADMAP.md"),
-    (["--task", "lm", "--arch", "mixtral-8x7b", "--connect",
-      "127.0.0.1:5555"], SystemExit, "ROADMAP.md"),
-    (["--task", "lm", "--arch", "zamba2-7b"], SystemExit, "ROADMAP.md"),
+    (["--task", "mbrl", "--mode", "procs", "--transport", "tcp",
+      "--mesh", "auto"], SystemExit, "ROADMAP.md"),
+    (["--task", "mbrl", "--engine", "sequential", "--mesh", "auto"],
+     SystemExit, "ROADMAP.md"),
 ], ids=["threads", "procs", "tcp", "mesh", "connect", "lm"])
 def test_launcher_refuses_what_is_not_ported(flags, err, match):
     with pytest.raises(err, match=match):

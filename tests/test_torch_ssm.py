@@ -265,24 +265,30 @@ def test_bf16_prefill_and_decode_match_jax(mesh1):
         assert err <= BF16_TOL * max(1.0, np.abs(want).max()), (name, err)
 
 
-def test_unported_branches_raise_with_a_roadmap_pointer(f32):
-    """What is not ported raises with a pointer to the roadmap: the train
-    step of the moe and hybrid families (they serve, and are held against
-    the reference in ``test_torch_moe.py`` and ``test_torch_hybrid.py``;
-    the dense and ssm train steps in ``test_torch_lm_train.py``, the
-    encoder-decoder and vision ones in ``test_torch_encdec.py`` and
-    ``test_torch_vlm.py``)."""
-    tcfg = f32[0][1]
-    glm = get_config("glm4-9b", reduced=True)
-    hybrid = dataclasses.replace(tcfg, family="hybrid", attn_every=2)
-    moe = dataclasses.replace(glm, family="moe", num_experts=4, top_k=2)
-    for call in (
-            lambda: api.build(hybrid, InputShape("t", 8, B, "train"),
-                              device=CPU),
-            lambda: api.build(moe, InputShape("t", 8, B, "train"),
-                              device=CPU)):
+def test_unported_branches_raise_with_a_roadmap_pointer():
+    """What is not ported raises with a pointer to the roadmap: a role mesh
+    for the async trainer (``mesh=`` or ``roles=``), and a gradient through
+    the moe experts' bf16 kernel route (forward-only, as the reference's;
+    the moe and hybrid families train through their plain routes, held
+    against the reference in ``test_torch_lm_train.py``)."""
+    from repro_torch.core import AsyncTrainer, RunConfig
+    from repro_torch.envs import make_env
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.mbrl.algos import AlgoConfig, make_algo
+    from repro_torch.mbrl.dynamics import EnsembleConfig
+    from repro_torch.mbrl.policy import PolicyConfig
+    env = make_env("pendulum")
+    ens = EnsembleConfig(env.obs_dim, env.act_dim, hidden=8, n_models=2)
+    pol = PolicyConfig(env.obs_dim, env.act_dim, hidden=8)
+    algo = make_algo(AlgoConfig(imagine_batch=4, imagine_horizon=3,
+                                n_models=2), pol, env.reward, env.reset_batch)
+    for kw in (dict(mesh=object()), dict(roles=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+            AsyncTrainer(env, ens, algo, RunConfig(total_trajs=1),
+                         device=CPU, **kw)
+    dy = torch.ones((3, 2), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gmm_ops.RaggedGroupedMatmulBf16.backward(None, dy)
 
 
 def test_entry_points_refuse_to_run_without_cuda(f32, monkeypatch):
