@@ -81,6 +81,32 @@ Phases, each printing one JSON line:
    step, one ``improve`` input shape, one policy version per step, finite
    imagined returns and at least one TRPO step found. Then
    ``improve_profile``: ``torch.profiler`` over one more ME-TRPO step.
+   ``role_mesh``: the role-mesh path (``core/roles.py``). The split of the
+   local cards (one card: the shared fallback and its warning, printed
+   first as ``role_mesh_split``); the model learner at ``model_learn``'s
+   ensemble sharded over a stand-in mesh of four entries of the card
+   (``launch.mesh.make_mesh(4, device="cuda:0")``) against one device on
+   its trajectories, 4 epochs on the reference's test grid (a ring of 12)
+   and on the full ring: losses and val losses within the reference's own
+   bound (rtol 2e-5, atol 1e-6), the leaves within it or within
+   ``LEAF_CONTROL_FACTOR`` times the drift of one device whose minibatch
+   rows are reversed, each shard's ``gmm_equal`` launches as its rows
+   imply, then the small ring wrapped with one input shape; the policy
+   improver at ``policy_improve``'s shapes through
+   ``PolicyImprovementWorker(mesh=)`` (ME-TRPO, its imagination sharded
+   by ``configure_mesh``) against one device: two steps' imagined returns
+   and pushed policy within the bound, each shard's ``imag_fused``
+   launches; the same sharded rollout on the legacy step (``gmm_ragged``,
+   its first step within the bound, the rollout's gap reported, each
+   shard's launches) and ``row_coupling``: whether the ragged products'
+   and the policy's rows change with the rows beside them (the ragged
+   ones must not); a pull onto the placement and 32
+   unchanged pulls under ``torch.cuda.set_sync_debug_mode("error")``: no
+   copy; a paced threads-mode ``AsyncTrainer(mesh=..., role_ratios=(1, 2,
+   1))`` on the stand-in mesh at the engines' configuration (12
+   trajectories exactly, two model shards) and, with three cards or more,
+   on the real split (else a line saying why not); the dry run's GLM-4-9B
+   weight bytes within 1% of the allocator's. At most 90 s.
 9. The engines, on the same configuration (``pr2_lego_stack``, the ensemble
    at ``EnsembleConfig`` defaults, ME-TRPO at ``AlgoConfig`` defaults, the
    policy of ``examples/pr2_arm.py``) with ``RunConfig(total_trajs=12,
@@ -270,8 +296,9 @@ Phases, each printing one JSON line:
    logits with and without the patches apart by more than that.
 16. ``kernels``: one entry per kernel, as the port's records expect;
    ``gmm_equal`` and ``imag_fused`` also give their ``event_run``,
-   ``threads_paced``, ``procs_paced``, ``threads_tcp``, ``procs_tcp_join``
-   and ``chaos_run`` launches; flash attention its ``dense_lockstep``,
+   ``threads_paced``, ``procs_paced``, ``threads_tcp``, ``procs_tcp_join``,
+   ``chaos_run`` and ``role_mesh`` launches (``gmm_ragged`` its
+   ``role_mesh`` ones); flash attention its ``dense_lockstep``,
    ``lm_train``, ``wm_mbrl``, ``moe_lockstep``, ``moe_serve``,
    ``hybrid_lockstep``, ``encdec_lockstep``, ``encdec_train`` and
    ``vlm_lockstep`` launches and its times at the world model's prefill
@@ -292,6 +319,7 @@ drives its path (``serve``, ``model_learn``, ``assigned_predict``,
 ``sequential_run``, ``quickstart``, ``threads_paced``, ``threads_fleet``,
 ``threads_profile``, ``procs_paced``, ``procs_restart``, ``procs_fleet``,
 ``threads_tcp``, ``procs_tcp_join``, ``chaos_run``,
+``role_mesh`` (each of its sharded runs),
 ``ssm_serve``, ``ssm_forward``, ``dense_lockstep``, ``lm_train``,
 ``wm_mbrl``, ``moe_lockstep``, ``moe_serve``, ``hybrid_lockstep``,
 ``moe_train``, ``hybrid_train`` (and each one's trained comparison),
@@ -313,6 +341,7 @@ val ring's size, random weights. It serves comparisons between trees.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -426,6 +455,32 @@ CHAOS_RUN = dict(n_collectors=2, max_restarts=3)
 # nvidia-smi's utilization.gpu (the share of each sample period in which a
 # kernel ran), sampled this often over an engine run
 SMI_SAMPLE_MS = 200
+# the role_mesh phase: a stand-in mesh of four entries of the card (the
+# counterpart of the reference's forced host devices). Four epochs of the
+# sharded model learner against four on one device, and sharded against
+# one-device imagination, held to the reference's own bound between the
+# two (tests/_mesh_impl.py:211-225). Then 8 more trajectories wrap the
+# small ring. The threads run splits the mesh (1, 2, 1): two model shards
+ROLE_MESH_ENTRIES, ROLE_MESH_EPOCHS, ROLE_MESH_WRAP_TRAJS = 4, 4, 8
+# the reference's test grid at the learner's ensemble: 12 trajectories in a
+# ring of 12 (1,000 train rows: 3 minibatches of 256 an epoch, as the
+# reference's 48 rows make 3 of 16)
+ROLE_MESH_SMALL_TRAJS = 12
+# Adam divides each gradient by its running scale, so a near-zero gradient
+# element's rounding moves its leaf by a share of the learning rate: one
+# device whose minibatch rows are merely reversed drifts 4-9x the
+# reference's bound at these grids on the H100, the sharded learner
+# 1.5-1.6x as far as that (PERF.md). The leaves are held to the bound, or
+# to this many times the reordering's drift
+LEAF_CONTROL_FACTOR = 4
+MESH_RTOL, MESH_ATOL = 2e-5, 1e-6
+ROLE_MESH_PULLS = 32
+# ME-TRPO steps of the sharded policy improver against one device
+ROLE_MESH_IMPROVE_STEPS = 2
+ROLE_RATIOS = (1, 2, 1)
+ROLE_MESH_LIMIT_S = 90.0
+# the dry run's GLM-4-9B weight bytes against the allocator's count
+DRYRUN_BYTES_RTOL = 0.01
 
 
 def emit(obj) -> None:
@@ -1286,12 +1341,15 @@ def epoch_gmm_launches(learner) -> tuple:
     learner's ring as it now stands: every active minibatch runs the depth
     layers forward, each layer's dW and dX backward (the first layer's dX
     too: jax.grad, and so the port, differentiates the normaliser), and
-    one masked validation forward."""
+    one masked validation forward; on a role mesh, each shard all of that
+    on its block of the rows."""
+    from repro_torch.core.roles import num_shards
     from repro_torch.mbrl import dynamics as DYN
     nb, bs = DYN.ring_grid(learner.cfg, learner.buffer.capacity)
     n_active = min(max(learner.buffer.size // bs, 1), nb)
     depth = len(learner.params["members"]["w"])
-    return n_active * depth + depth, n_active * 2 * depth
+    n = num_shards(learner._batch_shard)
+    return n * (n_active * depth + depth), n * n_active * 2 * depth
 
 
 def model_learn(gmm_ops) -> tuple:
@@ -1752,6 +1810,547 @@ def profile_improve(worker) -> dict:
 
 # ---------------------------------------------------------------- phase 9
 
+# ------------------------------------------------------------- role_mesh
+class PerShardLaunches:
+    """While active, every call of ``module.name`` records how far the
+    launch counters read by ``read()`` grew across it, call ``i`` to shard
+    ``i % shards``: the sharded loops call the per-shard function in shard
+    order, one thread at a time. A measurement of this script only; the
+    wrappers of the kernels count as they always do."""
+
+    def __init__(self, module, name: str, read, shards: int):
+        self.module, self.name, self.read = module, name, read
+        self.by_shard = [dict.fromkeys(read(), 0) for _ in range(shards)]
+        self.calls = 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def counted(*args, **kw):
+            before = self.read()
+            out = self.orig(*args, **kw)
+            shard = self.by_shard[self.calls % len(self.by_shard)]
+            for k, v in self.read().items():
+                shard[k] += v - before[k]
+            self.calls += 1
+            return out
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def mesh_gap(got, want) -> dict:
+    """Largest absolute gap between two trees (or lists of floats) and
+    the largest gap over ``MESH_RTOL * |want| + MESH_ATOL``: within the
+    reference's bound when that ratio is at most 1."""
+    from repro_torch.utils.tree import tree_leaves
+    worst, ratio = 0.0, 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = torch.as_tensor(g).double(), torch.as_tensor(w).double()
+        d = (g.to(w.device) - w).abs()
+        worst = max(worst, float(d.max()))
+        ratio = max(ratio, float((d / (MESH_RTOL * w.abs()
+                                       + MESH_ATOL)).max()))
+    return {"max_abs": worst, "over_bound": ratio}
+
+
+def leaf_gaps(got, want) -> dict:
+    """``mesh_gap`` of each leaf of two ensembles, by its path."""
+    def paths(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from paths(v, f"{prefix}{k}.")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from paths(v, f"{prefix}{i}.")
+        else:
+            yield prefix[:-1], tree
+    want = dict(paths(want))
+    return {k: mesh_gap(v, want[k]) for k, v in paths(got)}
+
+
+def sharded_against_single(cfg, trajs, max_trajs, mesh, gmm_ops) -> dict:
+    """``ROLE_MESH_EPOCHS`` epochs of a model learner sharded over ``mesh``
+    against the same learner on one device: the same trajectories, the
+    same seed (so the same init and index draws). Each sharded epoch's
+    ``gmm_equal`` launches are recorded by shard."""
+    from repro_torch.core import roles as ROLES
+    from repro_torch.core.servers import DataServer, ParameterServer
+    from repro_torch.core.workers import ModelLearningWorker
+    from repro_torch.mbrl import dynamics as DYN
+    n = ROLES.num_shards(ROLES.batch_sharded(mesh))
+
+    def gmm():
+        return {"fwd": gmm_ops.equal_launches,
+                "bwd": gmm_ops.equal_bwd_launches}
+    runs = {}
+    for name, m in (("single", None), ("sharded", mesh), ("reordered", None)):
+        ds, ms = DataServer(), ParameterServer()
+        w = ModelLearningWorker(cfg, ds, ms, seed=3, max_trajs=max_trajs,
+                                early_stop=False, min_trajs=1,
+                                burst=len(trajs), mesh=m,
+                                device=ROLES.home_device(mesh))
+        if name == "reordered":
+            # the control: one device, the same draws, each minibatch's
+            # rows in reverse order (the same math, other sums)
+            w.index_source = (lambda nb, b, size, w=w:
+                              w._draw_indices(nb, b, size).flip(1))
+        for t in trajs:
+            ds.push(t)
+        if m is not None:   # the main path's counts from 0
+            gmm_ops.equal_launches = gmm_ops.equal_bwd_launches = 0
+        per_shard = PerShardLaunches(DYN, "value_and_grad", gmm, n)
+        epochs = []
+        for _ in range(ROLE_MESH_EPOCHS):
+            c0 = gmm()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (per_shard if m is not None else contextlib.nullcontext()):
+                vloss = w.step()
+            torch.cuda.synchronize()
+            c1 = gmm()
+            epochs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                           "val_loss": vloss,
+                           "train_loss": float(w.last_train_loss),
+                           "launches": [c1["fwd"] - c0["fwd"],
+                                        c1["bwd"] - c0["bwd"]]})
+        runs[name] = {"worker": w, "data": ds, "epochs": epochs,
+                      "by_shard": per_shard.by_shard}
+    single, sharded = runs["single"], runs["sharded"]
+    control = runs["reordered"]
+    buf = sharded["worker"].buffer
+    nb, bs = DYN.ring_grid(cfg, buf.capacity)
+    n_active = min(max(buf.size // bs, 1), nb)
+    depth = len(single["worker"].params["members"]["w"])
+    losses = {k: mesh_gap([e[k] for e in sharded["epochs"]],
+                          [e[k] for e in single["epochs"]])
+              for k in ("train_loss", "val_loss")}
+    leaves = leaf_gaps(sharded["worker"].params, single["worker"].params)
+    one = single["worker"].buffer
+    return {
+        "sharded": sharded["worker"], "data": sharded["data"],
+        "same_ring": (buf.capacity, buf.val_capacity) == (one.capacity,
+                                                          one.val_capacity),
+        "record": {
+            "ring": [buf.capacity, buf.val_capacity], "grid": [nb, bs],
+            "n_active": n_active, "adam_steps": ROLE_MESH_EPOCHS * n_active,
+            "loss_gaps": losses, "params_gap": mesh_gap(
+                sharded["worker"].params, single["worker"].params),
+            "worst_leaves": dict(sorted(
+                leaves.items(), key=lambda kv: -kv[1]["over_bound"])[:3]),
+            "reordered_control": {
+                "loss_gaps": {k: mesh_gap([e[k] for e in control["epochs"]],
+                                          [e[k] for e in single["epochs"]])
+                              for k in ("train_loss", "val_loss")},
+                "params_gap": mesh_gap(control["worker"].params,
+                                       single["worker"].params)},
+            "gmm_equal_launches_by_shard": sharded["by_shard"],
+            "epochs_single": single["epochs"],
+            "epochs_sharded": sharded["epochs"],
+            "epoch_ms_single": [e["ms"] for e in single["epochs"]],
+            "epoch_ms_sharded": [e["ms"] for e in sharded["epochs"]],
+            "gmm_equal_launches": sum(sum(e["launches"])
+                                      for e in sharded["epochs"])},
+        "launches_as_implied":
+            all(sum(s.values()) == ROLE_MESH_EPOCHS * n_active * 3 * depth
+                for s in sharded["by_shard"])
+            and all(e["launches"] == [n * (n_active * depth + depth),
+                                      n * n_active * 2 * depth]
+                    for e in sharded["epochs"])}
+
+
+def role_mesh_learner(learner, gmm_ops, mesh) -> dict:
+    """The model learner sharded over ``mesh`` (a stand-in mesh of the
+    card) against one device, at the ``model_learn`` phase's ensemble, on
+    its trajectories (its train and val rings cut into trajectories). On
+    the reference's test grid (``ROLE_MESH_SMALL_TRAJS`` trajectories in a
+    ring of as many, a few minibatches an epoch, tests/_mesh_impl.py) and
+    on the full ring (64 minibatches an epoch) the losses and val losses
+    are held to the reference's bound; the leaves to that bound or to
+    ``LEAF_CONTROL_FACTOR`` times the drift of a control, one device whose
+    minibatch rows are reversed (Adam carries the order of any sum into
+    the leaves). The small ring then wraps under ``ROLE_MESH_WRAP_TRAJS``
+    more and trains on, one input shape throughout."""
+    from repro_torch.core import roles as ROLES
+    from repro_torch.envs import make_env
+
+    train, _ = learner.buffer.train_view()
+    val, _ = learner.buffer.val_view()
+    h = make_env(LEARN_ENV).horizon
+    rows = {k: torch.cat([train[k], val[k]]) for k in train}
+    trajs = [{k: v[i * h:(i + 1) * h] for k, v in rows.items()}
+             for i in range(rows["obs"].shape[0] // h)]
+    n = ROLES.num_shards(ROLES.batch_sharded(mesh))
+    small = sharded_against_single(learner.cfg,
+                                   trajs[:ROLE_MESH_SMALL_TRAJS],
+                                   ROLE_MESH_SMALL_TRAJS, mesh, gmm_ops)
+    full = sharded_against_single(learner.cfg, trajs, learner.max_trajs,
+                                  mesh, gmm_ops)
+    # the wrap: more trajectories than the small ring holds
+    sharded = small["sharded"]
+    for t in trajs[-ROLE_MESH_WRAP_TRAJS:]:
+        small["data"].push(t)
+    g0 = gmm_ops.equal_launches + gmm_ops.equal_bwd_launches
+    wrap_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded.step()
+        torch.cuda.synchronize()
+        wrap_ms.append((time.perf_counter() - t0) * 1e3)
+    wrap = gmm_ops.equal_launches + gmm_ops.equal_bwd_launches - g0
+    storage, _ = sharded.buffer.train_view()
+    s, f = small["record"], full["record"]
+    checks = {
+        "reference grid: losses and val losses within the reference's "
+        "bound": all(g["over_bound"] <= 1.0 for g in
+                     s["loss_gaps"].values()),
+        "full ring: losses and val losses within the reference's bound":
+            all(g["over_bound"] <= 1.0 for g in f["loss_gaps"].values()),
+        "every leaf within the reference's bound, or within "
+        f"{LEAF_CONTROL_FACTOR} times one device's drift under a reordering":
+            all(r["params_gap"]["over_bound"] <= max(
+                1.0, LEAF_CONTROL_FACTOR
+                * r["reordered_control"]["params_gap"]["over_bound"])
+                for r in (s, f)),
+        "gmm_equal launches on every shard, as its rows imply":
+            small["launches_as_implied"] and full["launches_as_implied"],
+        "the rings of both learners alike (no capacity rounded up)":
+            small["same_ring"] and full["same_ring"],
+        "the ring wrapped": sharded.buffer._written > sharded.buffer.capacity,
+        "one train_epoch / val_loss shape while the ring wraps":
+            (sharded.compile_count(), sharded.val_compile_count()) == (1, 1),
+        "the ring stays in its shards":
+            all(isinstance(v, ROLES.RowShards) and len(v.shards) == n
+                for v in storage.values()),
+    }
+    return {"checks": checks, "shards": n, "reference_grid": s,
+            "full_ring": f, "wrap_epoch_ms": wrap_ms,
+            "wrap_gmm_equal_launches": wrap,
+            "gmm_equal_launches": s["gmm_equal_launches"]
+                + f["gmm_equal_launches"] + wrap}
+
+
+def role_mesh_improver(model_params, gmm_ops, imag_ops, mesh) -> dict:
+    """The policy improver at the ``policy_improve`` phase's shapes (ME-TRPO,
+    64 starts, horizon 50, its ensemble, a policy of its width) through the
+    engine's entry point, ``PolicyImprovementWorker(mesh=)``: its
+    imagination sharded over ``mesh`` by ``configure_mesh``, against the
+    same worker on one device, same seed, same pulls. Each of
+    ``ROLE_MESH_IMPROVE_STEPS`` steps' imagined return and the pushed
+    policy are held to the reference's bound, and each shard's
+    ``imag_fused`` launches recorded. Then the sharded algorithm's rollout
+    on the legacy step (``gmm_ragged``) against one device on one draw: its
+    first step held to the bound, the whole rollout's gap reported, and
+    beside it ``role_mesh_row_coupling``, which reads where the two
+    differ."""
+    from repro_torch.core import roles as ROLES
+    from repro_torch.core.servers import ParameterServer
+    from repro_torch.core.workers import PolicyImprovementWorker
+    from repro_torch.envs import make_env
+    from repro_torch.mbrl import algos as A
+    from repro_torch.mbrl import policy as PI
+
+    env = make_env(LEARN_ENV)
+    cfg = A.AlgoConfig(algo="me-trpo")
+    pol_cfg = PI.PolicyConfig(env.obs_dim, env.act_dim, hidden=POLICY_HIDDEN)
+    model_server = ParameterServer()
+    model_server.push(model_params)
+    n = ROLES.num_shards(ROLES.batch_sharded(mesh))
+    H, B = cfg.imagine_horizon, cfg.imagine_batch
+
+    def fused():
+        return {"launches": imag_ops.launches}
+
+    def ragged():
+        return {"launches": gmm_ops.ragged_launches}
+    runs = {}
+    for name, m in (("single", None), ("sharded", mesh)):
+        algo = A.make_algo(cfg, pol_cfg, env.reward, env.reset_batch)
+        server = ParameterServer()
+        worker = PolicyImprovementWorker(algo, server, model_server, seed=7,
+                                         mesh=m, device=ROLES.home_device(
+                                             mesh))
+        if m is not None:   # the main path's counts from 0
+            imag_ops.launches = 0
+        steps = []
+        per = PerShardLaunches(A, "_rollout_with_logp", fused, n)
+        with (per if m is not None else contextlib.nullcontext()):
+            for _ in range(ROLE_MESH_IMPROVE_STEPS):
+                l0 = imag_ops.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                did = worker.step()
+                torch.cuda.synchronize()
+                steps.append({
+                    "did": did, "ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": imag_ops.launches - l0,
+                    "imagined_return":
+                        float(worker.last_info["imagined_return"]),
+                    "found": bool(worker.last_info["found"])})
+        runs[name] = {"worker": worker, "policy": server.pull()[0],
+                      "steps": steps, "by_shard": per.by_shard,
+                      "sharding": algo._batch_sharding}
+    single, sharded = runs["single"], runs["sharded"]
+
+    # the legacy step through the same sharded rollout, on one draw
+    algo, worker = sharded["worker"].algo, sharded["worker"]
+    gen = torch.Generator(device=ROLES.home_device(mesh)).manual_seed(4)
+    draws = algo.draw(model_params, gen)
+    pol = worker.state["policy"]
+    one = single["worker"].algo
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = one._rollout(model_params, pol, draws, None, shard=True,
+                        fused=False)
+    torch.cuda.synchronize()
+    legacy_single_ms = (time.perf_counter() - t0) * 1e3
+    gmm_ops.ragged_launches = 0         # the main path's counts from 0
+    with PerShardLaunches(A, "_rollout_with_logp", ragged, n) as legacy:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = algo._rollout(model_params, pol, draws, None, shard=True,
+                            fused=False)
+        torch.cuda.synchronize()
+        legacy_ms = (time.perf_counter() - t0) * 1e3
+    legacy_launches = gmm_ops.ragged_launches
+    # (obs, pre, rew): the first step is obs[1], pre[0], rew[0]
+    legacy_rec = {
+        "gap": mesh_gap(list(got), list(want)),
+        "first_step_gap": mesh_gap([got[1][0], got[0][1], got[2][0]],
+                                   [want[1][0], want[0][1], want[2][0]]),
+        "finite": all(bool(torch.isfinite(v).all()) for v in got),
+        "launches_by_shard": [s["launches"] for s in legacy.by_shard],
+        "launches_sharded": legacy_launches,
+        "ms_single": legacy_single_ms, "ms_sharded": legacy_ms}
+    coupling = role_mesh_row_coupling(model_params, pol, draws, mesh)
+
+    returns = mesh_gap([s["imagined_return"] for s in sharded["steps"]],
+                       [s["imagined_return"] for s in single["steps"]])
+    checks = {
+        "improver: the worker configured the algorithm's mesh":
+            sharded["sharding"] is not None and single["sharding"] is None,
+        "improver: every step ran, one improve shape":
+            all(s["did"] for r in runs.values() for s in r["steps"])
+            and all(r["worker"].compile_count() == 1
+                    for r in runs.values()),
+        "improver: sharded imagined returns and pushed policy within the "
+        "reference's bound":
+            returns["over_bound"] <= 1.0
+            and mesh_gap(sharded["policy"],
+                         single["policy"])["over_bound"] <= 1.0,
+        "improver: every shard launches imag_fused H times a step":
+            sharded["by_shard"] == [{"launches": H * ROLE_MESH_IMPROVE_STEPS}]
+            * n and all(s["launches"] == n * H for s in sharded["steps"])
+            and all(s["launches"] == H for s in single["steps"]),
+        "legacy: the first sharded step within the reference's bound":
+            legacy_rec["first_step_gap"]["over_bound"] <= 1.0
+            and legacy_rec["finite"],
+        "legacy: every shard launches gmm_ragged H times a layer":
+            legacy_rec["launches_by_shard"] == [3 * H] * n
+            and legacy_launches == n * 3 * H,
+        "row coupling: gmm_ragged's rows do not depend on their groups' "
+        "row counts": coupling["predict_assigned"]["rows_changed"] == 0,
+    }
+    return {"checks": checks, "shape": [B, H], "shards": n,
+            "steps_single": single["steps"],
+            "steps_sharded": sharded["steps"],
+            "imagined_return_gap": returns,
+            "policy_gap": mesh_gap(sharded["policy"], single["policy"]),
+            "imag_fused_launches_by_shard":
+                [s["launches"] for s in sharded["by_shard"]],
+            "legacy": legacy_rec, "row_coupling": coupling,
+            "imag_fused_launches": sum(s["launches"]
+                                       for s in sharded["steps"]),
+            "gmm_ragged_launches": legacy_launches}
+
+
+def role_mesh_row_coupling(model_params, pol, draws, mesh) -> dict:
+    """Where a sharded legacy rollout parts from one device: the first
+    step's two calls on all the starts against each shard's block of them.
+    ``predict_assigned`` (three ``gmm_ragged`` products, each shard's
+    groups holding fewer rows) is given the whole batch's actions, so only
+    the ragged products' row counts differ; the policy's sample
+    (``sample_with_logp``, plain matmuls) is read the same way. Counts the
+    rows that are not bit-equal, and the largest gap."""
+    from repro_torch.core import roles as ROLES
+    from repro_torch.mbrl import dynamics as DYN
+    from repro_torch.mbrl import policy as PI
+
+    s, eps, members = draws["s0"], draws["eps"][0], draws["members"][0]
+    slices = ROLES.shard_slices(ROLES.batch_sharded(mesh), s.shape[0])
+    a, pre, _ = PI.sample_with_logp(pol, s, eps)
+    whole = {"policy": pre,
+             "predict_assigned": DYN.predict_assigned(model_params, s, a,
+                                                      members)}
+    parts = {"policy": [], "predict_assigned": []}
+    for _, lo, hi in slices:
+        parts["policy"].append(PI.sample_with_logp(pol, s[lo:hi],
+                                                   eps[lo:hi])[1])
+        parts["predict_assigned"].append(DYN.predict_assigned(
+            model_params, s[lo:hi], a[lo:hi], members[lo:hi]))
+    out = {}
+    for k, w in whole.items():
+        g = torch.cat(parts[k])
+        diff = (g - w).abs()
+        out[k] = {"rows_changed": int((diff.amax(1) > 0).sum()),
+                  "max_abs": float(diff.max())}
+    out["rows"] = [s.shape[0], [hi - lo for _, lo, hi in slices]]
+    out["group_rows_whole"] = torch.bincount(
+        members, minlength=DYN.n_members(model_params)).tolist()
+    return out
+
+
+def role_mesh_pulls(model_params, mesh) -> dict:
+    """A pull onto the placement ``replicated(mesh)``: the stored tensors
+    themselves when they already live there; then ``ROLE_MESH_PULLS``
+    unchanged pulls with that ``sharding=`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, counting copies."""
+    from repro_torch.core import roles as ROLES
+    from repro_torch.core import servers as SRV
+    from repro_torch.utils.tree import tree_leaves
+    ps = SRV.ParameterServer()
+    ver = ps.push(model_params)
+    repl = ROLES.replicated(mesh)
+    val, got = ps.pull_if_newer(0, sharding=repl)
+    stored, _ = ps.pull()
+    same = got == ver and all(a is b for a, b in zip(tree_leaves(val),
+                                                     tree_leaves(stored)))
+    copies = []
+    orig = SRV.tree_to
+    SRV.tree_to = lambda *a: copies.append(a) or orig(*a)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        unchanged = [ps.pull_if_newer(ver, sharding=repl)
+                     for _ in range(ROLE_MESH_PULLS)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        SRV.tree_to = orig
+    us = (time.perf_counter() - t0) * 1e6 / ROLE_MESH_PULLS
+    checks = {
+        "an already-placed pull hands out the stored tensors": same,
+        f"{ROLE_MESH_PULLS} unchanged pulls: no value, no copy, no "
+        "allocation, no sync": all(v is None and g == ver
+                                   for v, g in unchanged)
+            and not copies and torch.cuda.memory_allocated() == mem0,
+    }
+    return {"checks": checks, "pulls": ROLE_MESH_PULLS,
+            "copies": len(copies), "unchanged_pull_us": us}
+
+
+def role_mesh(CONFIG, init_params, learner, model_server, gmm_ops,
+              imag_ops) -> dict:
+    """The role-mesh path on the card: the split of the local cards, the
+    sharded model learner and imagination on a stand-in mesh of
+    ``ROLE_MESH_ENTRIES`` entries of the card against one device, the
+    placement-aware pulls, a threads-mode ``AsyncTrainer`` on that mesh
+    split ``ROLE_RATIOS`` (and on the real split where the host has three
+    cards), and the dry run's weight bytes against the allocator's."""
+    import warnings
+
+    from repro_torch.core import roles as ROLES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
+    from repro_torch.models.config import INPUT_SHAPES
+
+    t_phase = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        local = ROLES.split_roles(make_local_mesh())
+    local_warnings = [str(w.message) for w in caught]
+    n_cards = torch.cuda.device_count()
+    print(json.dumps({"phase": "role_mesh_split",
+                      "cards": n_cards, **local.describe()}), flush=True)
+    mesh = make_mesh(ROLE_MESH_ENTRIES, device="cuda:0")
+    model_params, _ = model_server.pull()
+
+    learned = role_mesh_learner(learner, gmm_ops, mesh)
+    improved = role_mesh_improver(model_params, gmm_ops, imag_ops, mesh)
+    pulls = role_mesh_pulls(model_params, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer, threads = threads_run(
+        "role_mesh_threads", gmm_ops, imag_ops,
+        dict(total_trajs=ENGINE_TRAJS, pace_collection=True,
+             collect_speed=THREADS_SPEED),
+        mesh=mesh, role_ratios=ROLE_RATIOS)
+    roles = trainer.roles
+    storage = (trainer.model_worker.buffer.train_view()[0]
+               if trainer.model_worker.buffer is not None else {})
+    threads.update({
+        "roles": roles.describe(),
+        "model_shards": ROLES.num_shards(trainer.model_worker._batch_shard),
+        "ring_shards": sorted({len(v.shards) for v in storage.values()})})
+    del trainer
+    if n_cards >= 3:
+        real_trainer, real = threads_run(
+            "role_mesh_real_split", gmm_ops, imag_ops,
+            dict(total_trajs=ENGINE_TRAJS, pace_collection=True,
+                 collect_speed=THREADS_SPEED),
+            mesh=make_local_mesh(), role_ratios=ROLE_RATIOS)
+        real["roles"] = real_trainer.roles.describe()
+        del real_trainer
+    else:
+        real = {"run": False, "why": f"{n_cards} card(s): a real split "
+                "needs one card a role (3), so it would be the shared "
+                "fallback, the same path as the stand-in run above"}
+        print(json.dumps({"phase": "role_mesh_real_split", **real}),
+              flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    glm = init_params(CONFIG, 0)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - a0
+    del glm
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = dryrun.step_bytes(CONFIG, INPUT_SHAPES["prefill_32k"])
+    dry_roles = dryrun.dryrun_roles(make_local_mesh(), verbose=False)
+    seconds = time.perf_counter() - t_phase
+
+    checks = {
+        **learned.pop("checks"), **improved.pop("checks"),
+        **pulls.pop("checks"),
+        "the local cards split as split_roles says": n_cards >= 3
+            or (local.shared and any("shared sub-meshes" in w
+                                     for w in local_warnings)),
+        "threads run on the stand-in mesh: a real (1, 2, 1) split":
+            not roles.shared and roles.describe()["model"] == [2],
+        "threads run: the sharded learner and improver worked":
+            threads["model_epochs"] >= 1 and threads["policy_steps"] >= 1
+            and threads["gmm_equal_launches"] > 0
+            and threads["imag_fused_launches"] > 0
+            and threads["ring_shards"] == [threads["model_shards"]],
+        "the dry run's weight bytes within 1% of the allocator's":
+            abs(dry["weights"] - allocated) <= DRYRUN_BYTES_RTOL * allocated,
+        f"the phase within {ROLE_MESH_LIMIT_S} s":
+            seconds <= ROLE_MESH_LIMIT_S,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    record = {
+        "cards": n_cards, "local_split": local.describe(),
+        "local_warnings": local_warnings, "dryrun_roles": dry_roles,
+        "stand_in_mesh": ROLE_MESH_ENTRIES, "learner": learned,
+        "improver": improved, "pulls": pulls, "threads": threads,
+        "real_split": real,
+        "glm4_9b_weights": {"dryrun_bytes": dry["weights"],
+                            "allocated_bytes": allocated,
+                            "gap": dry["weights"] / allocated - 1.0},
+        "seconds": seconds, "checks": sorted(checks)}
+    if failed:
+        raise RuntimeError(f"role_mesh failed: {failed}; {record}")
+    return record
+
+
 def engine_parts():
     """The engines' configuration: pr2_lego_stack, the ensemble at
     ``EnsembleConfig`` defaults, ME-TRPO at ``AlgoConfig`` defaults and the
@@ -1952,6 +2551,7 @@ def threads_run(name, gmm_ops, imag_ops, rc_kw: dict, **trainer_kw) -> tuple:
     implies and 50 ``imag_fused`` launches a policy step. Returns the
     trainer and the record."""
     from repro_torch.core import AsyncTrainer, RunConfig
+    from repro_torch.core.roles import num_shards
     env, ens, acfg, algo = engine_parts()
     rc = RunConfig(seed=0, **rc_kw)
     trainer = AsyncTrainer(env, ens, algo, rc, mode="threads", **trainer_kw)
@@ -1966,7 +2566,9 @@ def threads_run(name, gmm_ops, imag_ops, rc_kw: dict, **trainer_kw) -> tuple:
     gmm = gmm_ops.equal_launches + gmm_ops.equal_bwd_launches
     imag = imag_ops.launches
     model, policy = trainer.model_worker, trainer.policy_worker
-    horizon = policy.algo.cfg.imagine_horizon
+    # a role mesh's policy shards each run the horizon on their rows
+    horizon = (policy.algo.cfg.imagine_horizon
+               * num_shards(policy.algo._batch_sharding))
     epochs, workers = timing["epochs"], timing["workers"]
     per = [c.collected for c in trainer.collectors]
     times = [r["time"] for r in trace]
@@ -2341,10 +2943,10 @@ class PullMeter:
         self.rows = []
         call = srv.pull_if_newer
 
-        def metered(version):
+        def metered(version, **kw):
             b0 = srv.array_bytes_received
             t0 = time.perf_counter()
-            value, ver = call(version)
+            value, ver = call(version, **kw)
             self.rows.append((value is not None,
                               srv.array_bytes_received - b0,
                               (time.perf_counter() - t0) * 1e3))
@@ -4528,6 +5130,9 @@ def main() -> int:
     worker, improved = policy_improve(model_server, imag_ops)
     emit({"phase": "policy_improve", **improved})
     emit({"phase": "improve_profile", **profile_improve(worker)})
+    meshed = role_mesh(CONFIG, init_params, learner, model_server, gmm_ops,
+                       imag_ops)
+    emit({"phase": "role_mesh", **meshed})
     del worker, learner, model_server
     gc.collect()
     torch.cuda.empty_cache()
@@ -4697,6 +5302,8 @@ def main() -> int:
         "launches_threads_tcp": tcp["gmm_equal_launches"],
         "launches_procs_tcp_join": joined["gmm_equal_launches"],
         "launches_chaos_run": chaos["gmm_equal_launches"],
+        "launches_role_mesh": meshed["learner"]["gmm_equal_launches"]
+            + meshed["threads"]["gmm_equal_launches"],
         "max_abs_err": max(r["max_abs_err"]
                            for r in gmm_rows["equal"].values()),
         "ms": eq["ms"], "plain_ms": eq["plain_ms"],
@@ -4712,6 +5319,7 @@ def main() -> int:
             + grad["gmm_ragged_launches_fwd"],
         "launches_bwd": grad["gmm_ragged_launches_bwd"],
         "launches_dw": grad["gmm_ragged_launches_dw"],
+        "launches_role_mesh": meshed["improver"]["gmm_ragged_launches"],
         "max_abs_err": max(r["max_abs_err"]
                            for case in gmm_rows["ragged"].values()
                            for r in case.values()),
@@ -4751,6 +5359,8 @@ def main() -> int:
         "launches_threads_tcp": tcp["imag_fused_launches"],
         "launches_procs_tcp_join": joined["imag_fused_launches"],
         "launches_chaos_run": chaos["imag_fused_launches"],
+        "launches_role_mesh": meshed["improver"]["imag_fused_launches"]
+            + meshed["threads"]["imag_fused_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in imag_rows.values()),
         "ms": im["ms"], "plain_ms": im["plain_ms"],
         "bound_ms": im["bound_ms"], "bound_by": im["bound_by"],

@@ -66,8 +66,16 @@ not know which transport they hold. A procs run over tcp publishes its
 ``ProcSpec`` on the plane, so collectors on other hosts can join it
 (``--connect``). The event engine refuses tcp, as the reference does.
 
-Not ported (each raises, naming ROADMAP.md): role meshes (``mesh=``,
-``roles=``).
+Role meshes (core/roles.py). ``AsyncTrainer(mesh=..., role_ratios=...)``
+(or ``roles=`` a ``RoleSplit``) runs each worker on its own sub-mesh in the
+event and threads engines: collectors round-robin over the collector
+sub-mesh, the model learner's ring sharded over the model sub-mesh, the
+policy improver's imagination over the policy sub-mesh, the eval on the
+policy sub-mesh's first device. In threads mode each role has a CUDA stream
+on every card of its sub-mesh. A mesh with fewer devices than roles (one
+card) falls back to shared sub-meshes, as in the reference. The procs
+engine takes no mesh (the reference's ``ValueError``): each child owns its
+whole device.
 """
 from __future__ import annotations
 
@@ -90,6 +98,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import io as ckpt_io
+from repro_torch.core import roles as ROLES
 from repro_torch.core.servers import (DataServer, ParameterServer,
                                       ProcControl, ProcDataServer,
                                       ShmParameterServer)
@@ -171,9 +180,8 @@ def run_seeds(seed: int) -> tuple:
 
 
 def _not_ported(what: str) -> str:
-    return (f"{what} is not ported to repro_torch yet: only the event, "
-            "threads and procs engines without a role mesh are "
-            "(ROADMAP.md §1, open items)")
+    return (f"{what} is not ported to repro_torch: only the event, "
+            "threads and procs engines are (ROADMAP.md §1, open items)")
 
 
 # Every run and checkpoint directory this process's procs trainers created,
@@ -381,6 +389,7 @@ class AsyncTrainer:
     def __init__(self, env, ens_cfg, algo,
                  run_cfg: Optional[RunConfig] = None, *,
                  mode: str = "event", mesh=None, roles=None,
+                 role_ratios=(1, 2, 1), role_axis: Optional[str] = None,
                  algo_cfg=None, pol_cfg=None,
                  n_collectors: Optional[int] = None,
                  envs_per_collector: Optional[int] = None,
@@ -398,8 +407,14 @@ class AsyncTrainer:
         ``run_cfg.envs_per_collector``).
 
         ``device``: where every worker and the eval run; None means CUDA.
-        ``mode``: ``"event"``, ``"threads"`` or ``"procs"``. ``mesh`` and
-        ``roles`` take only their defaults: role meshes are not ported.
+        ``mode``: ``"event"``, ``"threads"`` or ``"procs"``.
+
+        ``mesh``/``roles``: run each worker on its own role sub-mesh
+        (core/roles.py), in the event and threads modes. Pass a ``roles``
+        RoleSplit, or a ``mesh`` to split by ``role_ratios`` along
+        ``role_axis``; ``device`` is then not used (the eval runs on the
+        policy sub-mesh's first device). Both None is the one-device
+        engine.
 
         ``mode="procs"`` also needs ``algo_cfg`` / ``pol_cfg`` (the plain
         ``AlgoConfig`` / ``PolicyConfig``): spawned children rebuild the
@@ -412,14 +427,11 @@ class AsyncTrainer:
                 f"loop only (got mode={mode!r})")
         if mode not in ("event", "threads", "procs"):
             raise NotImplementedError(_not_ported(f"mode={mode!r}"))
-        if mesh is not None or roles is not None:
-            if mode == "procs":
-                raise ValueError(
-                    'mode="procs" does not take a role mesh: each child '
-                    "owns its whole device; "
-                    + _not_ported("a per-process role mesh"))
-            raise NotImplementedError(
-                _not_ported("a role mesh (mesh=, roles=)"))
+        if mode == "procs" and (mesh is not None or roles is not None):
+            raise ValueError(
+                'mode="procs" does not take a role mesh: each child '
+                "owns its whole local backend (per-process meshes "
+                "are future work, see ROADMAP.md)")
         self.supervisor = supervisor
         self.algo_cfg = algo_cfg
         self.pol_cfg = pol_cfg
@@ -462,7 +474,12 @@ class AsyncTrainer:
         self.exploration = exploration if exploration is not None else (
             ExplorationSchedule(tuple(run_cfg.collect_noise))
             if run_cfg.collect_noise else ExplorationSchedule())
-        self.device = resolve_device(device)
+        if roles is None and mesh is not None:
+            roles = ROLES.split_roles(mesh, ratios=tuple(role_ratios),
+                                      axis=role_axis)
+        self.roles = roles
+        self.device = (ROLES.home_device(roles.policy) if roles is not None
+                       else resolve_device(device))
         sc, sm, sp, se = run_seeds(run_cfg.seed)
         self._eval_gen = torch.Generator(self.device).manual_seed(se)
         # threads + tcp: every store behind ONE control plane, owned by
@@ -482,12 +499,17 @@ class AsyncTrainer:
             self.data_server = DataServer()
             self.model_server = ParameterServer()
             self.policy_server = ParameterServer()
+        # workers shard batches along the axis the split was carved on
+        # (not axis_names[0]: a 2-pod mesh splits its wide "data" axis)
+        axis = roles.axis if roles is not None else None
         self.policy_worker = PolicyImprovementWorker(
             algo, self.policy_server, self.model_server, sp,
-            device=self.device)
+            mesh=roles.policy if roles is not None else None,
+            batch_axis=axis, device=self.device)
         # the collector FLEET: every member shares the policy/data
         # servers but owns its generator (collector 0 = the lone
-        # collector's stream) and its exploration rung. In procs mode the
+        # collector's stream), its exploration rung and, under a role
+        # mesh, its own device of the collector sub-mesh. In procs mode the
         # fleet lives in child processes, so the parent keeps one
         # collector (the ``collector`` alias) for the final count
         n_local = 1 if mode == "procs" else run_cfg.n_collectors
@@ -495,7 +517,9 @@ class AsyncTrainer:
             DataCollectionWorker(
                 env, self.policy_server, self.data_server,
                 self.policy_worker.state["policy"], sc,
-                speed=run_cfg.collect_speed, collector_id=i,
+                speed=run_cfg.collect_speed,
+                mesh=roles.collector if roles is not None else None,
+                collector_id=i,
                 noise_scale=self.exploration.scale_for(i),
                 envs_per_step=run_cfg.envs_per_collector, device=self.device)
             for i in range(n_local)]
@@ -506,7 +530,8 @@ class AsyncTrainer:
             min_trajs=run_cfg.min_warmup_trajs,
             burst=default_burst(run_cfg.n_collectors,
                                 run_cfg.envs_per_collector),
-            device=self.device)
+            mesh=roles.model if roles is not None else None,
+            batch_axis=axis, device=self.device)
         self.recorder = _Recorder(env, run_cfg.eval_rollouts)
 
     def run(self) -> List[Dict[str, float]]:
@@ -605,10 +630,11 @@ class AsyncTrainer:
             # a dead thread cannot push its claimed tickets, so the run
             # would otherwise end short with only a stderr traceback:
             # record the error, stop the fleet, raise it from this thread
-            s = streams[role]
             try:
-                with (contextlib.nullcontext() if s is None
-                      else torch.cuda.stream(s)):
+                with contextlib.ExitStack() as on_streams:
+                    # the role's home card last, so that it is current
+                    for s in reversed(streams[role] or ()):
+                        on_streams.enter_context(torch.cuda.stream(s))
                     body()
             except Exception as e:
                 errors.append((role, e))
@@ -681,27 +707,40 @@ class AsyncTrainer:
                              self._eval_gen)
         return self.recorder.trace
 
-    def _role_streams(self, roles) -> Dict[str, Optional[torch.cuda.Stream]]:
-        """A CUDA stream per role, each ordered after the work the caller
-        has queued so far (the workers' initial params); None for every
-        role on the CPU."""
-        if self.device.type != "cuda":
-            return {r: None for r in roles}
-        here = torch.cuda.current_stream(self.device)
+    def _role_devices(self) -> Dict[str, List[torch.device]]:
+        """The devices each role runs on, its home device first: a
+        collector its own; the model and policy roles their device, or
+        every device of their sub-mesh under a role mesh."""
+        out = {f"collect:{w.collector_id}": [w.device]
+               for w in self.collectors}
+        for role in ("model", "policy"):
+            mesh = getattr(self.roles, role, None)
+            out[role] = ([self.device] if mesh is None
+                         else list(dict.fromkeys(mesh.devices.flat)))
+        return out
+
+    def _role_streams(self, roles
+                      ) -> Dict[str, Optional[List[torch.cuda.Stream]]]:
+        """A CUDA stream per role on each card it runs on (its home card
+        first), each ordered after the work the caller has queued there so
+        far (the workers' initial params); None for a role on the CPU."""
+        devices = self._role_devices()
         out = {}
         for r in roles:
-            out[r] = torch.cuda.Stream(device=self.device)
-            out[r].wait_stream(here)
+            out[r] = None
+            for dev in devices[r]:
+                if dev.type == "cuda":
+                    s = torch.cuda.Stream(device=dev)
+                    s.wait_stream(torch.cuda.current_stream(dev))
+                    out[r] = (out[r] or []) + [s]
         return out
 
     def _join_streams(self, streams) -> None:
-        """Order the caller's stream after every role's work, without a
-        host sync."""
-        if self.device.type != "cuda":
-            return
-        here = torch.cuda.current_stream(self.device)
-        for s in streams.values():
-            here.wait_stream(s)
+        """Order the caller's stream on each card after every role's work
+        there, without a host sync."""
+        for role_streams in streams.values():
+            for s in role_streams or ():
+                torch.cuda.current_stream(s.device).wait_stream(s)
 
 
     # ------------------------------------------------------------- procs

@@ -42,8 +42,10 @@ import torch
 
 from repro_torch.checkpoint.io import (LeafCodec, flatten, layout_codec,
                                        unflatten)
+from repro_torch.core.roles import (RowShards, home_device, num_shards,
+                                    round_up, shard_devices)
 from repro_torch.kernels import LAUNCH_COUNTERS
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_to
 
 
 @runtime_checkable
@@ -52,8 +54,10 @@ class ParameterTransport(Protocol):
 
     * ``push(value) -> version``: publish atomically; each push bumps the
       version by 1.
-    * ``pull_if_newer(version) -> (value|None, version)``: the unchanged
-      path transfers nothing.
+    * ``pull_if_newer(version, *, sharding=None) -> (value|None,
+      version)``: the unchanged path transfers nothing; ``sharding`` is
+      the puller's placement (the in-process store honours it, the
+      cross-process ones return host tensors and ignore it).
     * ``pull() -> (value|None, version)``: unconditional latest.
     * ``pull_host() -> (host value|None, version)``: the only device->host
       boundary (checkpoints).
@@ -62,7 +66,7 @@ class ParameterTransport(Protocol):
 
     def push(self, value) -> int: ...
     def pull(self): ...
-    def pull_if_newer(self, version: int): ...
+    def pull_if_newer(self, version: int, *, sharding=None): ...
     def pull_host(self): ...
     @property
     def version(self) -> int: ...
@@ -100,16 +104,36 @@ def _ready_event(value) -> Optional["torch.cuda.Event"]:
 
 
 def _hand_over(values, events) -> None:
-    """Make the caller's current stream wait on each event, and mark every
-    CUDA tensor of ``values`` as used by that stream."""
+    """Make the caller's current stream wait on each event, and so the
+    caller's current stream on every other card that holds a CUDA tensor
+    of ``values`` (an event recorded on one card can be waited on from
+    another); mark every such tensor as used by the current stream of its
+    own card."""
     if not events:
         return
-    stream = torch.cuda.current_stream()
+    here = torch.cuda.current_stream()
     for ev in events:
-        stream.wait_event(ev)
+        here.wait_event(ev)
+    streams = {}
     for leaf in tree_leaves(values):
         if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            stream = streams.get(leaf.device)
+            if stream is None:
+                stream = streams[leaf.device] = \
+                    torch.cuda.current_stream(leaf.device)
+                if stream != here:
+                    for ev in events:
+                        stream.wait_event(ev)
             leaf.record_stream(stream)
+
+
+def _device_of(value) -> Optional[torch.device]:
+    """The device of a tree's first tensor (one tree holds one role's
+    params, so its leaves share a placement); None for a tree without."""
+    for leaf in tree_leaves(value):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return None
 
 
 def _host_copy(t: torch.Tensor) -> np.ndarray:
@@ -120,12 +144,19 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
 
 class ParameterServer:
     """Versioned store of tensor trees, Alg. 1/2/3 'Pull/Push
-    parameters'."""
+    parameters'.
+
+    Placement-aware (role meshes, core/roles.py): ``push`` records the
+    device the value lives on; ``pull_if_newer(version, sharding=...)``
+    copies it device to device onto the puller's placement, only on a
+    version change and only when the placement differs. The unchanged path
+    stays one lock + int compare."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._value = None
         self._ready = None
+        self._src = None
         self._version = 0
 
     @staticmethod
@@ -136,9 +167,11 @@ class ParameterServer:
     def push(self, value) -> int:
         snap = self._snapshot(value)    # copy outside the lock
         ready = _ready_event(snap)
+        src = _device_of(snap)
         with self._lock:
             self._value = snap
             self._ready = ready
+            self._src = src
             self._version += 1
             return self._version
 
@@ -150,16 +183,28 @@ class ParameterServer:
             _hand_over(value, (ready,))
         return value, version
 
-    def pull_if_newer(self, version: int):
+    def pull_if_newer(self, version: int, *, sharding=None):
         """(value, current_version) when the store holds something newer
         than ``version``, else (None, current_version). The unchanged path
-        is one lock + int compare."""
+        is one lock + int compare: no copy, no tree traversal, no host
+        sync.
+
+        ``sharding``: the puller's placement (``roles.replicated(mesh)``
+        or a ``SingleDeviceSharding``). On a version change the value is
+        copied device to device onto its device (``roles.home_device``),
+        after the source card's stream waits on the push; when it already
+        lives there, the stored tensors come back as they are."""
         with self._lock:
             if self._version == version or self._value is None:
                 return None, self._version
             value, ready, version = self._value, self._ready, self._version
+            src = self._src
         if ready is not None:
             _hand_over(value, (ready,))
+        if sharding is not None:
+            dst = home_device(sharding)
+            if src is not None and dst != src:
+                value = tree_to(value, dst)
         return value, version
 
     def pull_host(self):
@@ -303,12 +348,30 @@ class ReplayBuffer:
     exactly as sequential FIFO writes would — the same ring contents as the
     reference's ``_ring_write_burst``. Writes are in place (``index_copy_``):
     a view is a borrow, to re-fetch after every insert.
+
+    ``sharding`` (role meshes, core/roles.py): a ``batch_sharded``
+    placement over the owning worker's sub-mesh. Storage is allocated
+    PRE-SHARDED: each ring is a dict of ``roles.RowShards``, shard i's block
+    of rows on shard i's device. Capacities are rounded up to the shard
+    count. A write reaches every shard's device once (the trajectory, or a
+    burst's rows, copied there before the write, as the reference
+    replicates it onto the sub-mesh), then each shard copies the rows that
+    land in its block: slices of host-known bounds, so no shape depends on
+    the data and nothing waits on the device.
     """
 
     def __init__(self, capacity: int, *, val_capacity: Optional[int] = None,
                  holdout_frac: float = 0.2, burst_capacity: int = 8,
-                 device=None):
+                 device=None, sharding=None):
         self.burst_capacity = max(int(burst_capacity), 1)
+        self._shard_devices = None
+        if sharding is not None:
+            nsh = num_shards(sharding)
+            capacity = round_up(capacity, nsh)
+            val_capacity = round_up(
+                max(int(capacity) // 4, 1) if val_capacity is None
+                else val_capacity, nsh)
+            self._shard_devices = shard_devices(sharding)
         self.capacity = int(capacity)
         self.val_capacity = int(val_capacity if val_capacity is not None
                                 else max(self.capacity // 4, 1))
@@ -330,12 +393,40 @@ class ReplayBuffer:
             dev = next(iter(traj.values())).device
 
         def zeros(t, cap):
-            return torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype,
-                               device=dev)
+            if self._shard_devices is None:
+                return torch.zeros((cap,) + tuple(t.shape[1:]),
+                                   dtype=t.dtype, device=dev)
+            per = cap // len(self._shard_devices)
+            return RowShards([torch.zeros((per,) + tuple(t.shape[1:]),
+                                          dtype=t.dtype, device=d)
+                              for d in self._shard_devices])
         self._train = {k: zeros(v, self.capacity) for k, v in traj.items()}
         if self._every:     # holdout_frac == 0 never writes the val ring
             self._val = {k: zeros(v, self.val_capacity)
                          for k, v in traj.items()}
+
+    def _scatter_sharded(self, ring, flat, rows: int, cursor: int,
+                         cap: int) -> None:
+        """The rows of a write go to each shard's device once, then each
+        shard copies the runs of rows that land in its block. The target
+        rows ``(cursor + r) % cap`` are at most two runs, known on the
+        host."""
+        per = cap // len(self._shard_devices)
+        runs = [(cursor, min(rows, cap - cursor), 0)]
+        if runs[0][1] < rows:
+            runs.append((0, rows - runs[0][1], runs[0][1]))
+        placed = {dev: {k: v.to(dev) for k, v in flat.items()}
+                  for dev in dict.fromkeys(self._shard_devices)}
+        for i, dev in enumerate(self._shard_devices):
+            lo, hi = i * per, (i + 1) * per
+            here = placed[dev]
+            for start, n, src in runs:
+                a, b = max(start, lo), min(start + n, hi)
+                if a >= b:
+                    continue
+                for k, shards in ring.items():
+                    shards.shards[i][a - lo:b - lo].copy_(
+                        here[k][src + a - start:src + b - start])
 
     def _scatter(self, flat, rows: int, val: bool) -> None:
         """Write ``rows`` flattened transitions at the ring's cursor
@@ -343,10 +434,14 @@ class ReplayBuffer:
         ring = self._val if val else self._train
         cap = self.val_capacity if val else self.capacity
         cursor = self._val_cursor if val else self._cursor
-        dev = next(iter(ring.values())).device
-        idx = (cursor + torch.arange(rows, device=dev)) % cap
-        for k, buf in ring.items():
-            buf.index_copy_(0, idx, flat[k].to(device=dev, dtype=buf.dtype))
+        if self._shard_devices is not None:
+            self._scatter_sharded(ring, flat, rows, cursor, cap)
+        else:
+            dev = next(iter(ring.values())).device
+            idx = (cursor + torch.arange(rows, device=dev)) % cap
+            for k, buf in ring.items():
+                buf.index_copy_(0, idx,
+                                flat[k].to(device=dev, dtype=buf.dtype))
         if val:
             self._val_cursor = (cursor + rows) % cap
             self._val_written += rows
@@ -424,7 +519,8 @@ class ReplayBuffer:
         return len(trajs)
 
     def train_view(self) -> Tuple[Optional[Dict[str, torch.Tensor]], int]:
-        """(full-capacity storage, number of valid rows)."""
+        """(full-capacity storage, number of valid rows); with a
+        ``sharding``, each value is a ``roles.RowShards``."""
         return self._train, self.size
 
     def val_view(self) -> Tuple[Optional[Dict[str, torch.Tensor]], int]:
@@ -726,10 +822,13 @@ class ShmParameterServer(_MappedFile):
         self.pushes += 1
         return ver
 
-    def pull_if_newer(self, version: int):
+    def pull_if_newer(self, version: int, *, sharding=None):
         """(value, current_version) when newer than ``version``, else
         (None, version as seen). Unchanged: ONE aligned 8-byte read. The
-        value is a tree of CPU tensors, the caller's own."""
+        value is a tree of CPU tensors, the caller's own. ``sharding`` is
+        accepted for interface parity with :class:`ParameterServer` and
+        ignored: each process moves the host tensors onto its own
+        device."""
         ver = self._word(8)
         if ver == version or ver == 0:
             return None, ver

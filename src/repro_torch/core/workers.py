@@ -3,8 +3,13 @@
 
 Each worker is a pull -> step -> push loop with the minimal unit of work
 (one batch of rollouts / one model epoch / one policy-improvement step),
-run on one device. Parameter pulls are version-gated: an unchanged version
-costs one lock + integer compare against a device-resident cache.
+run on one device, or on its role's sub-mesh (``mesh=``, core/roles.py):
+a collector on its device of the collector sub-mesh (round-robin over the
+fleet), the model learner on a ring sharded over the model sub-mesh and
+trained data-parallel, the policy improver with its imagination sharded
+over the policy sub-mesh. Parameters live on a sub-mesh's first device.
+Parameter pulls are version-gated: an unchanged version costs one lock +
+integer compare against a device-resident cache.
 Randomness comes from explicit ``torch.Generator``s on the worker's device:
 one per collector (``collector_generator``), one per model learner, one per
 policy improver; the learner's minibatch index grid (``index_source``) and
@@ -37,6 +42,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import io as ckpt_io
+from repro_torch.core import roles as ROLES
 from repro_torch.core.servers import DataServer, ParameterServer, ReplayBuffer
 from repro_torch.kernels import LAUNCH_COUNTERS, launch_counts
 from repro_torch.mbrl import dynamics as DYN
@@ -140,9 +146,12 @@ class DataCollectionWorker:
 
     def __init__(self, env, policy_server: ParameterServer,
                  data_server: DataServer, init_policy_params, seed: int,
-                 *, speed: float = 1.0, collector_id: int = 0,
+                 *, speed: float = 1.0, mesh=None, collector_id: int = 0,
                  noise_scale: float = 1.0, envs_per_step: int = 1,
                  device=None):
+        """``mesh``: the collector sub-mesh. This collector then runs on
+        its one device of it (``roles.collector_sharding``: round-robin
+        over the fleet), where its pulls land; ``device`` is not used."""
         self.env = env
         self.policy_server = policy_server
         self.data_server = data_server
@@ -152,7 +161,13 @@ class DataCollectionWorker:
         if self.envs_per_step < 1:
             raise ValueError(f"envs_per_step must be >= 1, got "
                              f"{self.envs_per_step}")
-        self.device = resolve_device(device)
+        self._sharding = None
+        if mesh is not None:
+            self._sharding = ROLES.collector_sharding(mesh,
+                                                      self.collector_id)
+            self.device = self._sharding.device
+        else:
+            self.device = resolve_device(device)
         self._gen = collector_generator(seed, self.collector_id, self.device)
         # init_policy_params=None (procs mode): no in-process policy worker
         # to borrow initial params from; ``step`` returns None until the
@@ -180,7 +195,7 @@ class DataCollectionWorker:
         True once a policy is available. A pull across processes gives CPU
         tensors: they move onto this worker's device here, once."""
         fresh, self._policy_ver = self.policy_server.pull_if_newer(
-            self._policy_ver)
+            self._policy_ver, sharding=self._sharding)
         if fresh is not None:
             self._policy_cache = tree_to(fresh, self.device)
         return self._policy_cache is not None
@@ -216,20 +231,33 @@ class ModelLearningWorker:
     start both packages from one converted tree). ``index_source(nb, bs,
     size)`` gives each epoch's (nb, bs) minibatch grid; by default it is
     drawn with replacement from ``[0, max(size, 1))`` on this worker's
-    generator, the whole static grid every epoch, as the reference does."""
+    generator, the whole static grid every epoch, as the reference does.
+
+    ``mesh`` (the model sub-mesh) and ``batch_axis``: the ring is sharded
+    over the sub-mesh's ``batch_axis`` (``roles.batch_sharded``) and each
+    epoch trains data-parallel over its shards
+    (``make_ring_trainer(batch_sharding=)``); the parameters, the optimizer
+    state and the generator live on the sub-mesh's first device, so the
+    grid's draws are one device's. ``device`` is then not used."""
 
     def __init__(self, ens_cfg: DYN.EnsembleConfig,
                  data_server: DataServer, model_server: ParameterServer,
                  seed: int, *, params=None, max_trajs: int = 200,
                  ema_weight: float = 0.9, early_stop: bool = True,
                  min_trajs: int = 4, burst: int = 8,
-                 index_source: Optional[IndexSource] = None, device=None):
+                 index_source: Optional[IndexSource] = None, mesh=None,
+                 batch_axis: Optional[str] = None, device=None):
         self.cfg = ens_cfg
         self.data_server = data_server
         self.model_server = model_server
         self.max_trajs = max_trajs
         self.burst = max(int(burst), 1)
-        self.device = resolve_device(device)
+        self._batch_shard = None
+        if mesh is not None:
+            self._batch_shard = ROLES.batch_sharded(mesh, batch_axis)
+            self.device = ROLES.home_device(mesh)
+        else:
+            self.device = resolve_device(device)
         self._gen = torch.Generator(self.device).manual_seed(int(seed))
         self.params = (DYN.init_ensemble(ens_cfg, self._gen) if params is None
                        else tree_to(params, self.device))
@@ -257,11 +285,15 @@ class ModelLearningWorker:
             return
         horizon = int(next(iter(traj.values())).shape[0])
         capacity = self.max_trajs * horizon
+        # a sharded ReplayBuffer rounds its capacity up to the shard
+        # count; the trainer's grid reads the final value back
         self.buffer = ReplayBuffer(capacity, burst_capacity=self.burst,
-                                   device=self.device)
+                                   device=self.device,
+                                   sharding=self._batch_shard)
         self._grid = DYN.ring_grid(self.cfg, self.buffer.capacity)
         opt, self._train_epoch, self._val_loss, self._update_norm = \
-            DYN.make_ring_trainer(self.cfg, self.buffer.capacity)
+            DYN.make_ring_trainer(self.cfg, self.buffer.capacity,
+                                  batch_sharding=self._batch_shard)
         self.opt_state = opt.init(self.params)
 
     def compile_count(self) -> int:
@@ -301,7 +333,8 @@ class ModelLearningWorker:
             # no held-out traj yet: validate on a val-ring-SHAPED slice
             # of the train ring, so val_loss keeps one shape
             vcap = self.buffer.val_capacity
-            vdata = {k: v[:vcap] for k, v in data.items()}
+            vdata = {k: (v[:vcap] if self._batch_shard is None
+                         else v.head(vcap)) for k, v in data.items()}
             vsize = min(size, vcap)
         vloss = float(self._val_loss(self.params, vdata, vsize))
         self.last_train_loss = tr_loss
@@ -324,16 +357,29 @@ class PolicyImprovementWorker:
     worker's generator. ``push_init=False`` (a procs-mode crash restart)
     holds back the push of the initial policy, so that a restarted worker
     can load the latest snapshot and publish THAT: collectors never fall
-    back to a fresh random policy."""
+    back to a fresh random policy.
+
+    ``mesh`` (the policy sub-mesh) and ``batch_axis``: the algorithm's
+    imagination is sharded over the sub-mesh (``algo.configure_mesh``),
+    the state lives on its first device and model pulls land there
+    (``sharding=roles.replicated(mesh)``). ``device`` is then not used."""
 
     def __init__(self, algo, policy_server: ParameterServer,
                  model_server: ParameterServer, seed: int, *, policy=None,
                  draw_source: Optional[DrawSource] = None,
-                 push_init: bool = True, device=None):
+                 push_init: bool = True, mesh=None,
+                 batch_axis: Optional[str] = None, device=None):
         self.algo = algo
         self.policy_server = policy_server
         self.model_server = model_server
-        self.device = resolve_device(device)
+        self._repl = None
+        if mesh is not None:
+            self._repl = ROLES.replicated(mesh)
+            self.device = ROLES.home_device(mesh)
+            if hasattr(algo, "configure_mesh"):
+                algo.configure_mesh(mesh, batch_axis)
+        else:
+            self.device = resolve_device(device)
         self._gen = torch.Generator(self.device).manual_seed(int(seed))
         self.draw_source = draw_source
         self.state = algo.init(
@@ -353,7 +399,7 @@ class PolicyImprovementWorker:
 
     def step(self) -> bool:
         fresh, self._model_ver = self.model_server.pull_if_newer(
-            self._model_ver)                            # Pull (gated)
+            self._model_ver, sharding=self._repl)       # Pull (gated)
         if fresh is not None:
             self._model_cache = tree_to(fresh, self.device)
         if self._model_cache is None:

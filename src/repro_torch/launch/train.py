@@ -31,7 +31,14 @@ collectors::
         --transport tcp --bind 0.0.0.0:7447 --trajs 60
     python -m repro_torch.launch.train --connect trainer-host:7447
 
-What is not ported exits with a message that names ROADMAP.md: ``--mesh``.
+``--mesh auto|N`` role-shards the async engine (event and threads modes)
+over a mesh (core/roles.py) split by ``--role-ratios``: ``auto`` is every
+local card, ``N`` the first N cards (more than the host has raises). With
+``--device`` the mesh is N stand-ins of that one device (``--device cpu
+--mesh 4``, as the CPU tests run it)::
+
+    python -m repro_torch.launch.train --task mbrl --mode threads \
+        --mesh auto --role-ratios 1,2,1 --trajs 60
 """
 from __future__ import annotations
 
@@ -40,10 +47,17 @@ import json
 import time
 
 
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to repro_torch yet: only the "
-                      "event, threads and procs engines without a role "
-                      "mesh are (ROADMAP.md §1, open items)")
+def build_mesh(spec: str, device=None):
+    """``--mesh`` -> Mesh: "none" (one device), "auto" (every local card on
+    one ("data",) axis; with ``device``, that one device), or a device
+    count "N" (the first N cards, raising if the host has fewer; with
+    ``device``, N stand-ins of it)."""
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
+    if spec == "none":
+        return None
+    if spec == "auto":
+        return make_local_mesh(device)
+    return make_mesh(int(spec), device)
 
 
 def run_mbrl(args):
@@ -55,8 +69,11 @@ def run_mbrl(args):
     from repro_torch.mbrl.dynamics import EnsembleConfig
     from repro_torch.mbrl.policy import PolicyConfig
 
-    if args.mesh != "none":
-        raise _not_ported("--mesh")
+    mesh = build_mesh(args.mesh, args.device)
+    role_ratios = tuple(int(x) for x in args.role_ratios.split(","))
+    if mesh is not None and args.engine != "async":
+        raise SystemExit("--mesh is only supported by --engine async "
+                         "(role meshes belong to the async engine)")
     env = make_env(args.env)
     ens = EnsembleConfig(env.obs_dim, env.act_dim, hidden=args.model_hidden,
                          n_models=args.n_models)
@@ -93,6 +110,7 @@ def run_mbrl(args):
         # procs children rebuild the algorithm from plain configs, so the
         # async engine gets them beside the built algorithm
         "async": lambda: AsyncTrainer(env, ens, algo, rc, mode=args.mode,
+                                      mesh=mesh, role_ratios=role_ratios,
                                       algo_cfg=acfg, pol_cfg=pol,
                                       device=dev),
         "sequential": lambda: SequentialTrainer(env, ens, algo, rc,
@@ -231,10 +249,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ema-weight", type=float, default=0.9)
     ap.add_argument("--no-early-stop", action="store_true")
     ap.add_argument("--mesh", default="none",
-                    help="none; role meshes are not ported")
+                    help="none | auto | <device count>: role-shard the "
+                         "async engine over a device mesh (core/roles.py); "
+                         "with --device, stand-ins of that one device")
     ap.add_argument("--role-ratios", default="1,2,1",
-                    help="collector,model,policy share of a role mesh "
-                         "(ignored: role meshes are not ported)")
+                    help="collector,model,policy share of the mesh axis")
     ap.add_argument("--transport", default="shm", choices=["shm", "tcp"],
                     help="how workers reach the servers: shm = in-process "
                          "or file-backed stores (default); tcp = socket "

@@ -25,9 +25,12 @@ pair of those per ensemble member. Without ``draws``, ``improve`` draws
 them from ``generator`` (``draw``). ``init_state_fn(generator, n)`` makes
 start states, as the reference's ``init_state_fn(key, n)`` does.
 
-The reference's ``_MeshMixin`` (``configure_mesh``: imagination batches
-sharded over a role sub-mesh of a TPU pod) is not ported: the port runs on
-one card (ROADMAP.md §1, the mesh tools, item 9).
+Role meshes (core/roles.py): ``configure_mesh(mesh, batch_axis)`` (the
+reference's ``_MeshMixin``) shards ME-TRPO's and ME-PPO's imagination over
+the policy sub-mesh: each shard rolls its block of the imagined starts on
+its own device, and the flat batch is joined on the sub-mesh's first
+device for the TRPO or PPO statistics. MB-MPO's meta-step runs replicated,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -100,11 +103,27 @@ def _flat_batch(obs, pre, rew, gamma):
     return {"obs": flat(obs), "act_pre": flat(pre), "adv": adv.reshape(-1)}
 
 
-class _Algo:
+class _MeshMixin:
+    """Shared role-mesh hook: ``configure_mesh`` shards imagined-rollout
+    batches over the policy sub-mesh's batch axis. The state stays on the
+    sub-mesh's first device, where the worker places it
+    (core/workers.py). Without a mesh nothing is sharded."""
+
+    _batch_sharding = None
+
+    def configure_mesh(self, mesh, batch_axis: str | None = None) -> None:
+        from repro_torch.core.roles import batch_sharded
+        self._batch_sharding = batch_sharded(mesh, batch_axis)
+        # count the shapes afresh from the mesh on
+        self._improve = ShapeCounted(self._improve_impl)
+
+
+class _Algo(_MeshMixin):
     """What ME-* and MB-MPO share: the draws and the shape-counted step."""
 
     def __init__(self, cfg: AlgoConfig, pol_cfg: PI.PolicyConfig, reward_fn,
-                 init_state_fn, *, predict_fn=None):
+                 init_state_fn, *, predict_fn=None, mesh=None,
+                 batch_axis=None):
         self.cfg = cfg
         self.pol_cfg = pol_cfg
         self.reward_fn = reward_fn
@@ -112,6 +131,8 @@ class _Algo:
         self.predict_fn = predict_fn        # None = ensemble fast path;
         #                                     swap in a world model here
         self._improve = ShapeCounted(self._improve_impl)
+        if mesh is not None:
+            self.configure_mesh(mesh, batch_axis)
 
     def _rollout_draws(self, params, generator):
         cfg = self.cfg
@@ -125,11 +146,33 @@ class _Algo:
             d["eps"] = DYN.hoisted_noise(*shape, generator)
         return d
 
-    def _rollout(self, model_params, pol, d, generator):
-        return _rollout_with_logp(
-            model_params, pol, d["s0"], self.cfg.imagine_horizon,
-            self.reward_fn, self.predict_fn, eps=d["eps"],
-            members=d.get("members"), generator=generator)
+    def _rollout(self, model_params, pol, d, generator, *, shard=False,
+                 fused=True):
+        """The imagined rollout of draws ``d`` (``fused=False``: the legacy
+        two-call step, ``_rollout_with_logp``). With ``shard`` and a mesh
+        configured (the ensemble fast path), each shard rolls its block of
+        the starts on its device and the blocks are joined on the policy's
+        device; a swapped-in world model draws from ``generator`` and so
+        rolls on one device."""
+        if not (shard and self._batch_sharding is not None
+                and self.predict_fn is None):
+            return _rollout_with_logp(
+                model_params, pol, d["s0"], self.cfg.imagine_horizon,
+                self.reward_fn, self.predict_fn, eps=d["eps"],
+                members=d.get("members"), fused=fused, generator=generator)
+        from repro_torch.core.roles import replicas, shard_slices
+        home = d["s0"].device
+        slices = shard_slices(self._batch_sharding, d["s0"].shape[0])
+        devs = [dev for dev, _, _ in slices]
+        models, pols = replicas(model_params, devs), replicas(pol, devs)
+        parts = [_rollout_with_logp(
+            models[dev], pols[dev], d["s0"][lo:hi].to(dev),
+            self.cfg.imagine_horizon, self.reward_fn, None,
+            eps=d["eps"][:, lo:hi].to(dev),
+            members=d["members"][:, lo:hi].to(dev), fused=fused)
+            for dev, lo, hi in slices]
+        return tuple(torch.cat([p[i].to(home) for p in parts], dim=1)
+                     for i in range(3))
 
     def improve(self, state, model_params, draws=None, *, generator=None):
         """One policy-improvement step on ``draws``, or on draws made from
@@ -150,9 +193,11 @@ class MEAlgo(_Algo):
     """ME-TRPO / ME-PPO policy improvement."""
 
     def __init__(self, cfg: AlgoConfig, pol_cfg: PI.PolicyConfig, reward_fn,
-                 init_state_fn, *, predict_fn=None):
+                 init_state_fn, *, predict_fn=None, mesh=None,
+                 batch_axis=None):
         super().__init__(cfg, pol_cfg, reward_fn, init_state_fn,
-                         predict_fn=predict_fn)
+                         predict_fn=predict_fn, mesh=mesh,
+                         batch_axis=batch_axis)
         if cfg.algo == "me-ppo":
             self._ppo_opt, self._ppo_step = PPO.make_ppo_step(cfg.ppo_lr)
 
@@ -173,8 +218,10 @@ class MEAlgo(_Algo):
     @torch.no_grad()
     def _improve_impl(self, state, model_params, draws, generator):
         cfg = self.cfg
+        # imagination sharded over the policy sub-mesh when a mesh is
+        # configured; the TRPO/PPO statistics on the joined flat batch
         obs, pre, rew = self._rollout(model_params, state["policy"], draws,
-                                      generator)
+                                      generator, shard=True)
         batch = _flat_batch(obs, pre, rew, cfg.gamma)
         info = {"imagined_return": rew.sum(0).mean()}
         if cfg.algo == "me-trpo":
@@ -204,12 +251,17 @@ class MBMPO(_Algo):
     the stacked ensemble (``_member_params``). The inner gradient is taken
     with ``create_graph=True`` and the outer gradient differentiates through
     it: second order through every fused step (``kernels/imag``'s
-    ``FusedStep`` on the card)."""
+    ``FusedStep`` on the card).
+
+    On a role mesh the whole meta-step runs on the policy sub-mesh's first
+    device, replicated as in the reference: ``_vpg_loss`` never shards."""
 
     def __init__(self, cfg: AlgoConfig, pol_cfg: PI.PolicyConfig, reward_fn,
-                 init_state_fn, *, predict_fn=None):
+                 init_state_fn, *, predict_fn=None, mesh=None,
+                 batch_axis=None):
         super().__init__(cfg, pol_cfg, reward_fn, init_state_fn,
-                         predict_fn=predict_fn)
+                         predict_fn=predict_fn, mesh=mesh,
+                         batch_axis=batch_axis)
         self._outer_opt = adam(cfg.ppo_lr)
 
     def init(self, generator=None, *, policy=None):
@@ -271,15 +323,20 @@ class MBMPO(_Algo):
 
 
 def make_algo(cfg: AlgoConfig, pol_cfg: PI.PolicyConfig, reward_fn,
-              init_state_fn, *, predict_fn=None):
+              init_state_fn, *, predict_fn=None, mesh=None,
+              batch_axis=None):
     """``predict_fn=None`` -> ensemble sample-then-compute fast path (the
     fused step: the kernel on the card, the plain version on the CPU); any
     ``(params, obs, act, generator)`` callable swaps the world model for
-    every algorithm (ME-* and MB-MPO alike)."""
+    every algorithm (ME-* and MB-MPO alike). ``mesh``: the policy role
+    sub-mesh to shard imagination over — usually left None and configured
+    by the engine through ``algo.configure_mesh``."""
     if cfg.algo in ("me-trpo", "me-ppo"):
         return MEAlgo(cfg, pol_cfg, reward_fn, init_state_fn,
-                      predict_fn=predict_fn)
+                      predict_fn=predict_fn, mesh=mesh,
+                      batch_axis=batch_axis)
     if cfg.algo == "mb-mpo":
         return MBMPO(cfg, pol_cfg, reward_fn, init_state_fn,
-                     predict_fn=predict_fn)
+                     predict_fn=predict_fn, mesh=mesh,
+                     batch_axis=batch_axis)
     raise ValueError(cfg.algo)

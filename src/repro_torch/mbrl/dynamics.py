@@ -30,7 +30,7 @@ from repro_torch.kernels.imag import ops as imag_ops
 from repro_torch.mbrl import policy as PI
 from repro_torch.optim.optimizers import adam, apply_updates
 from repro_torch.utils.shape_stats import ShapeCounted
-from repro_torch.utils.tree import tree_leaves, tree_unflatten
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,16 +139,28 @@ def predict(params, obs, act, member_idx):
                                 dim=0)[0]
 
 
-def masked_mse_loss(params, obs, act, next_obs, weights):
-    """MSE over rows where ``weights`` is 1 — used against full-capacity
-    ring storage, where rows past the valid count are garbage."""
+def _row_losses(params, obs, act, next_obs):
+    """Each row's squared error, averaged over members and outputs:
+    (B,)."""
     n = params["norm"]
     target = (next_obs - obs - n["mu_out"]) / n["sig_out"]
     pred = gmm_ops.ensemble_mlp(params["members"],
                                 _normalized_input(params, obs, act))
-    per_row = torch.mean((pred - target[None]) ** 2, dim=(0, 2))   # (B,)
+    return torch.mean((pred - target[None]) ** 2, dim=(0, 2))
+
+
+def masked_mse_loss(params, obs, act, next_obs, weights):
+    """MSE over rows where ``weights`` is 1 — used against full-capacity
+    ring storage, where rows past the valid count are garbage."""
+    per_row = _row_losses(params, obs, act, next_obs)
     w = weights.to(per_row.dtype)
     return torch.sum(per_row * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def _rows_loss(params, obs, act, next_obs, denom: int):
+    """One shard's part of a minibatch's MSE: its rows' summed losses over
+    the whole minibatch's row count."""
+    return _row_losses(params, obs, act, next_obs).sum() / denom
 
 
 def mse_loss(params, obs, act, next_obs):
@@ -259,9 +271,129 @@ def ring_grid(cfg: EnsembleConfig, capacity: int, *,
     return nb, bs
 
 
+def _gather_grid(data, idx, devices):
+    """The minibatches of the (nb, bs) index grid ``idx`` gathered from
+    row-sharded ring storage (a dict of ``RowShards``), batch-sharded over
+    ``devices``: shard j gets ``split_bounds``' block j of every minibatch's
+    rows, ``{key: (nb, c_j, ...)}`` on its device, or None for an empty
+    block. Every source block is read at the clamped local rows and only
+    the rows it owns are kept, so the gather has the grid's shape whatever
+    rows it draws; no shape depends on the data and nothing waits on the
+    device."""
+    from repro_torch.core.roles import split_bounds
+    first = next(iter(data.values()))
+    per, srcs = first.rows_per_shard, first.devices
+    on_src = {d: idx.to(d) for d in dict.fromkeys(srcs)}
+    out = []
+    for dev, (lo, hi) in zip(devices, split_bounds(idx.shape[1],
+                                                   len(devices))):
+        if hi == lo:
+            out.append(None)
+            continue
+        owner = idx[:, lo:hi].to(dev) // per
+        mb = {}
+        for k, rows in data.items():
+            got = None
+            for s, sdev in enumerate(srcs):
+                local = (on_src[sdev][:, lo:hi] - s * per).clamp(0, per - 1)
+                vals = rows.shards[s].index_select(0, local.reshape(-1))
+                vals = vals.reshape(local.shape + vals.shape[1:]).to(dev)
+                if got is None:
+                    got = vals
+                else:
+                    mask = (owner == s).reshape(owner.shape + (1,) * (
+                        vals.dim() - 2))
+                    got = torch.where(mask, vals, got)
+            mb[k] = got
+        out.append(mb)
+    return out
+
+
+def _sgd_epoch_sharded(opt, params, opt_state, data, batches, n_active: int,
+                       devices):
+    """``_sgd_epoch`` data-parallel over ``devices``: every minibatch's
+    rows split into one block a shard, each shard's loss and gradients of
+    its block (its rows' summed losses over the minibatch's row count) on
+    its device against its replica of the parameters, the gradients
+    summed on the home device in shard order, ONE update, and the new
+    parameters placed back on every shard. The same math as one device."""
+    from repro_torch.core.roles import replicas
+    home = tree_leaves(params)[0].device
+    bs = batches.shape[1]
+    mbs = _gather_grid(data, batches, devices)
+    total = torch.zeros((), dtype=torch.float32, device=home)
+    for i in range(n_active):
+        reps = replicas(params, devices)
+        loss = grads = None
+        for dev, mb in zip(devices, mbs):
+            if mb is None:
+                continue
+            lj, gj = value_and_grad(_rows_loss, reps[dev], mb["obs"][i],
+                                    mb["act"][i], mb["next_obs"][i], bs)
+            lj, gj = lj.to(home), tree_map(lambda g: g.to(home), gj)
+            if grads is None:
+                loss, grads = lj, gj
+            else:
+                loss = loss + lj
+                grads = tree_map(torch.add, grads, gj)
+        with torch.no_grad():
+            upd, opt_state = opt.update(grads, opt_state, params)
+            params = apply_updates(params, upd)
+        total = total + loss
+    return params, opt_state, total / max(n_active, 1)
+
+
+def _val_loss_sharded(params, data, size: int):
+    """``masked_mse_loss`` over row-sharded storage: each shard's masked
+    sum on its device, the sums and weights added on the home device in
+    shard order."""
+    from repro_torch.core.roles import replicas
+    home = tree_leaves(params)[0].device
+    obs = data["obs"]
+    per = obs.rows_per_shard
+    reps = replicas(params, obs.devices)
+    num = torch.zeros((), dtype=obs.dtype, device=home)
+    den = torch.zeros((), dtype=obs.dtype, device=home)
+    for j, dev in enumerate(obs.devices):
+        w = ((torch.arange(per, device=dev) + j * per) < size).to(obs.dtype)
+        per_row = _row_losses(reps[dev], obs.shards[j],
+                              data["act"].shards[j],
+                              data["next_obs"].shards[j])
+        num = num + (per_row * w).sum().to(home)
+        den = den + w.sum().to(home)
+    return num / torch.clamp(den, min=1.0)
+
+
+def _norm_stats_sharded(data, size: int):
+    """``masked_norm_stats`` over row-sharded storage: each moment's
+    masked sums per shard, added on the first shard's device in shard
+    order."""
+    obs = data["obs"]
+    per, devs = obs.rows_per_shard, obs.devices
+    home = devs[0]
+    parts = []
+    for j, dev in enumerate(devs):
+        w = ((torch.arange(per, device=dev) + j * per) < size).to(obs.dtype)
+        o = obs.shards[j]
+        parts.append((w, torch.cat([o, data["act"].shards[j]], -1),
+                      data["next_obs"].shards[j] - o))
+    tot = torch.clamp(sum(w.sum().to(home) for w, _, _ in parts), min=1.0)
+
+    def moments(which):
+        mu = sum((p[which] * p[0][:, None]).sum(0).to(home)
+                 for p in parts) / tot
+        var = sum((((p[which] - mu.to(p[which].device)) ** 2)
+                   * p[0][:, None]).sum(0).to(home) for p in parts) / tot
+        return mu, torch.sqrt(var) + 1e-4
+    mu_in, sig_in = moments(1)
+    mu_out, sig_out = moments(2)
+    return {"mu_in": mu_in, "sig_in": sig_in,
+            "mu_out": mu_out, "sig_out": sig_out}
+
+
 def make_ring_trainer(cfg: EnsembleConfig, capacity: int,
                       *, epoch_batches: Optional[int] = None,
-                      max_epoch_batches: int = 64):
+                      max_epoch_batches: int = 64, batch_sharding=None):
     """Trainer over fixed-capacity ring storage. Returns
     ``(opt, train_epoch, val_loss, update_norm)``:
 
@@ -279,10 +411,26 @@ def make_ring_trainer(cfg: EnsembleConfig, capacity: int,
     ``train_epoch`` and ``val_loss`` count the distinct input shapes they
     see (``shape_count``): the eager form of the reference's "compiles
     exactly once regardless of how full the buffer is".
+
+    ``batch_sharding`` (role meshes): a ``roles.batch_sharded`` placement
+    over the owning sub-mesh. The ring storage arrives as ``RowShards``
+    from a ``ReplayBuffer`` with that sharding, and the epoch runs
+    data-parallel: the grid is gathered once from the row-sharded ring
+    into batch-sharded minibatches at the grid's fixed shape, each shard
+    takes the loss and gradients of its own block of every minibatch (the
+    ``gmm_equal`` kernel on its device), the gradients are summed in shard
+    order and the update applied once (``_sgd_epoch_sharded``); the
+    normaliser's statistics and the validation loss reduce across shards.
+    The same math as one device, and one input shape as the ring fills and
+    wraps. The parameters stay on the sub-mesh's first device.
     """
     opt = adam(cfg.lr)
     nb, bs = ring_grid(cfg, capacity, epoch_batches=epoch_batches,
                        max_epoch_batches=max_epoch_batches)
+    devices = None
+    if batch_sharding is not None:
+        from repro_torch.core.roles import shard_devices
+        devices = shard_devices(batch_sharding)
 
     def _train_epoch(params, opt_state, data, size: int, idx):
         if tuple(idx.shape) != (nb, bs):
@@ -290,17 +438,24 @@ def make_ring_trainer(cfg: EnsembleConfig, capacity: int,
                              f"{(nb, bs)}")
         # one pass over the VALID region per epoch, not the whole grid
         n_active = min(max(int(size) // bs, 1), nb)
+        if devices is not None:
+            return _sgd_epoch_sharded(opt, params, opt_state, data, idx,
+                                      n_active, devices)
         return _sgd_epoch(opt, params, opt_state, data["obs"], data["act"],
                           data["next_obs"], idx, n_active=n_active)
 
     @torch.no_grad()
     def _val_loss(params, data, size: int):
+        if devices is not None:
+            return _val_loss_sharded(params, data, size)
         obs = data["obs"]
         w = torch.arange(obs.shape[0], device=obs.device) < size
         return masked_mse_loss(params, obs, data["act"], data["next_obs"], w)
 
     @torch.no_grad()
     def _update_norm(data, size: int):
+        if devices is not None:
+            return _norm_stats_sharded(data, size)
         return masked_norm_stats(data["obs"], data["act"],
                                  data["next_obs"], size)
 

@@ -29,8 +29,8 @@ projected from the encoder's output once. Decode writes the self cache in
 place and leaves the cross cache alone.
 
 The reference's ``param_specs`` and ``cache_specs`` place these trees on a
-device mesh; the port runs on one card and does not port them (ROADMAP.md
-§1, item 9). Its ``remat`` flags (``jax.checkpoint``) have no counterpart:
+device mesh; they wait for the LM's multi-card sharding (ROADMAP.md §1,
+item 10). Its ``remat`` flags (``jax.checkpoint``) have no counterpart:
 the port's train step trains by autograd of the plain attention, as
 ``lm.make_train_step`` does.
 """
@@ -68,9 +68,11 @@ def init_dec_block(cfg: ModelConfig, generator, device):
 
 def init_params(cfg: ModelConfig, seed: int, *, device=None) -> LM.Params:
     """Random weights from ``seed``, drawn on ``device`` by one explicit
-    ``torch.Generator``, in the reference's tree (module docstring)."""
+    ``torch.Generator``, in the reference's tree (module docstring). On
+    the ``meta`` device nothing is allocated (the dry run's counts)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
     return LM.Params({
         "embed": L.init_embed(cfg, gen, dev),
         "enc_layers": [init_enc_block(cfg, gen, dev)

@@ -152,10 +152,12 @@ def n_shared_invocations(cfg: ModelConfig) -> int:
 
 def init_params(cfg: ModelConfig, seed: int, *, device=None) -> LM:
     """Random weights from ``seed``, drawn on ``device`` by one explicit
-    ``torch.Generator`` (N(0, 1/fan_in) matrices, unit norms)."""
+    ``torch.Generator`` (N(0, 1/fan_in) matrices, unit norms). On the
+    ``meta`` device nothing is allocated (the dry run's counts)."""
     kind = _block_kind(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
     embed = L.init_embed(cfg, gen, dev)
     if kind in ("ssm", "hybrid"):
         layers = [{"mamba": S.init_mamba(cfg, gen, dev)}

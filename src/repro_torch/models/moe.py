@@ -28,8 +28,9 @@ CPU the capacity buffers' batched products, as the reference trains
 off-TPU. The bf16 kernel route has no backward, as the reference's has
 none.
 
-Not ported (mesh code, ROADMAP.md §1 item 9): ``moe_forward_ws``, the
-``tp`` strategy, ``_fsdp_gather`` and ``spec_moe``.
+Not ported yet (the LM's multi-card sharding, ROADMAP.md §1 item 10):
+``moe_forward_ws``, the ``tp`` strategy, ``_fsdp_gather`` and
+``spec_moe``.
 """
 from __future__ import annotations
 

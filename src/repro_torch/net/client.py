@@ -150,11 +150,13 @@ class TcpParameterServer(_TcpHandle):
         self.pushes += 1
         return ver
 
-    def pull_if_newer(self, version: int):
+    def pull_if_newer(self, version: int, *, sharding=None):
         """(value, current_version) when newer than ``version``, else
         (None, version as seen). The value is a tree of CPU tensors, the
         caller's own. Unchanged: one header-only round trip. A transport
-        failure degrades to (None, version)."""
+        failure degrades to (None, version). ``sharding`` is accepted for
+        interface parity and ignored: the caller moves the host tensors
+        onto its own device."""
         try:
             _, ver, _, _, payload = self._rpc(F.OP_PPULL, word=version,
                                               aux=self.store_id)

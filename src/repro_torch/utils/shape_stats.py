@@ -21,6 +21,9 @@ def _signature(x) -> Any:
         return tuple((k, _signature(v)) for k, v in sorted(x.items()))
     if isinstance(x, (list, tuple)):
         return tuple(_signature(v) for v in x)
+    shards = getattr(x, "shards", None)     # a core.roles.RowShards
+    if isinstance(shards, list):
+        return ("shards",) + tuple(_signature(v) for v in shards)
     return type(x).__name__  # e.g. the LM, or a host int like a ring's size
 
 

@@ -66,6 +66,10 @@ SLICE10 = ["models/moe.py", "configs/mixtral_8x7b.py",
 # testing/parity.py and launch/train.py)
 SLICE12 = ["models/encdec.py", "configs/seamless_m4t_medium.py",
            "configs/phi3_vision_4_2b.py"]
+# the role-mesh slice (it extends core/servers.py, core/workers.py,
+# core/runtime.py, mbrl/dynamics.py, mbrl/algos.py, net/client.py,
+# models/config.py and launch/train.py)
+SLICE14 = ["core/roles.py", "launch/mesh.py", "launch/dryrun.py"]
 EXAMPLES = ["torch_quickstart.py", "torch_pr2_arm.py",
             "torch_async_vs_sync.py", "torch_train_world_model.py",
             "torch_wm_imagination.py", "torch_serve_world_model.py",
@@ -90,7 +94,7 @@ def test_no_jax_or_reference_import(path):
 
 @pytest.mark.parametrize("module", SLICE2 + SLICE3 + SLICE4 + SLICE5
                          + SLICE6 + SLICE8 + SLICE9 + SLICE10
-                         + SLICE12)
+                         + SLICE12 + SLICE14)
 def test_slice_module_is_scanned(module):
     assert PORT / module in FILES
 

@@ -38,7 +38,9 @@ from repro_torch.core import clock as TC
 from repro_torch.core import runtime as TR
 from repro_torch.core import workers as TW
 from repro_torch.envs import make_env as tmake_env
+from repro_torch.core.roles import split_roles
 from repro_torch.launch import train as launch
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.mbrl import algos as TA
 from repro_torch.mbrl import dynamics as TD
 from repro_torch.mbrl import policy as TPI
@@ -278,13 +280,17 @@ def test_real_clock_reads_the_monotonic_clock():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    # the threads and procs engines and the tcp transport are ported; a
-    # per-process role mesh under either engine is not
-    (dict(mode="threads", roles=object()), NotImplementedError,
+    # the threads and procs engines, the tcp transport and role meshes
+    # (event and threads modes) are ported; an engine the reference does
+    # not have is not, and the procs engine takes no role mesh (the
+    # reference's ValueError, which names ROADMAP.md)
+    (dict(mode="pod", mesh=make_mesh(4, device="cpu")), NotImplementedError,
      "ROADMAP.md"),
     (dict(mode="procs", roles=object()), ValueError, "ROADMAP.md"),
-    (dict(mesh=object()), NotImplementedError, "ROADMAP.md"),
-    (dict(roles=object()), NotImplementedError, "ROADMAP.md"),
+    (dict(mode="procs", mesh=make_mesh(4, device="cpu")), ValueError,
+     'mode="procs" does not take a role mesh'),
+    (dict(mode="procs", roles=split_roles(make_mesh(4, device="cpu"))),
+     ValueError, 'mode="procs" does not take a role mesh'),
     (dict(mode="procs", supervisor=TR.Supervisor(), mesh=object()),
      ValueError, "ROADMAP.md"),
     (dict(mode="procs", supervisor=TR.Supervisor(), roles=object()),
@@ -384,20 +390,25 @@ def test_launcher_runs_each_engine_on_the_cpu(engine, tmp_path):
 
 
 @pytest.mark.parametrize("flags,err,match", [
-    # the threads and procs engines, the tcp transport, --connect and
-    # --task lm on every arch are ported; a role mesh under any mode and
-    # engine is not (the ids "connect" and "lm" hold it under the tcp
-    # control plane and under an explicit --task mbrl)
-    (["--mode", "threads", "--mesh", "auto"], SystemExit, "ROADMAP.md"),
-    (["--mode", "procs", "--mesh", "auto"], SystemExit, "ROADMAP.md"),
+    # the threads and procs engines, the tcp transport, --connect, --task
+    # lm on every arch and --mesh with the async engine's event and threads
+    # modes are ported; what stands is the reference's own refusals: a
+    # role mesh with a synchronous engine (SystemExit) or with procs mode
+    # (ValueError, also under the tcp control plane: "connect")
+    (["--mode", "threads", "--engine", "partial-data", "--mesh", "2"],
+     SystemExit, "--mesh is only supported by --engine async"),
+    (["--mode", "procs", "--mesh", "2"], ValueError,
+     'mode="procs" does not take a role mesh'),
     # the event mode over tcp meets the reference's error
     (["--transport", "tcp"], ValueError,
      'transport="tcp" needs a real engine'),
-    (["--mesh", "auto"], SystemExit, "ROADMAP.md"),
+    (["--engine", "partial-model", "--mesh", "auto"], SystemExit,
+     "--mesh is only supported by --engine async"),
     (["--task", "mbrl", "--mode", "procs", "--transport", "tcp",
-      "--mesh", "auto"], SystemExit, "ROADMAP.md"),
+      "--mesh", "auto"], ValueError, 'mode="procs" does not take a role '
+     "mesh"),
     (["--task", "mbrl", "--engine", "sequential", "--mesh", "auto"],
-     SystemExit, "ROADMAP.md"),
+     SystemExit, "--mesh is only supported by --engine async"),
 ], ids=["threads", "procs", "tcp", "mesh", "connect", "lm"])
 def test_launcher_refuses_what_is_not_ported(flags, err, match):
     with pytest.raises(err, match=match):

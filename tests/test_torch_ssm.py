@@ -266,14 +266,18 @@ def test_bf16_prefill_and_decode_match_jax(mesh1):
 
 
 def test_unported_branches_raise_with_a_roadmap_pointer():
-    """What is not ported raises with a pointer to the roadmap: a role mesh
-    for the async trainer (``mesh=`` or ``roles=``), and a gradient through
-    the moe experts' bf16 kernel route (forward-only, as the reference's;
-    the moe and hybrid families train through their plain routes, held
-    against the reference in ``test_torch_lm_train.py``)."""
+    """What is not ported or not supported raises with a pointer to the
+    roadmap: a role mesh for the procs engine (``mesh=`` or ``roles=``;
+    the reference's own ValueError, per-process meshes being future work),
+    and a gradient through the moe experts' bf16 kernel route
+    (forward-only, as the reference's; the moe and hybrid families train
+    through their plain routes, held against the reference in
+    ``test_torch_lm_train.py``)."""
     from repro_torch.core import AsyncTrainer, RunConfig
+    from repro_torch.core.roles import split_roles
     from repro_torch.envs import make_env
     from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.mbrl.algos import AlgoConfig, make_algo
     from repro_torch.mbrl.dynamics import EnsembleConfig
     from repro_torch.mbrl.policy import PolicyConfig
@@ -282,10 +286,11 @@ def test_unported_branches_raise_with_a_roadmap_pointer():
     pol = PolicyConfig(env.obs_dim, env.act_dim, hidden=8)
     algo = make_algo(AlgoConfig(imagine_batch=4, imagine_horizon=3,
                                 n_models=2), pol, env.reward, env.reset_batch)
-    for kw in (dict(mesh=object()), dict(roles=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    mesh = make_mesh(4, device=CPU)
+    for kw in (dict(mesh=mesh), dict(roles=split_roles(mesh))):
+        with pytest.raises(ValueError, match="ROADMAP"):
             AsyncTrainer(env, ens, algo, RunConfig(total_trajs=1),
-                         device=CPU, **kw)
+                         mode="procs", device=CPU, **kw)
     dy = torch.ones((3, 2), dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gmm_ops.RaggedGroupedMatmulBf16.backward(None, dy)
